@@ -1,0 +1,145 @@
+"""ctypes loader for the C++ graph engine (libgraphcore.so).
+
+``graphcore.cpp`` is a copy of the JAX package's engine. The library is
+built at first use with one ``g++`` call into the port's own build
+directory (``genome_assembly_tpu_torch/build/``). A failed build or load
+raises with the compiler's output: the port has no pure-Python fallback,
+because the Python cycle removal is orders of magnitude slower and would
+let a run overrun any time limit without an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+
+from .._build import build_shared_library
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "graphcore.cpp")
+GXX = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+BUILD_TIMEOUT_S = 300
+
+_LIB = None
+
+
+def _declare(lib) -> None:
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    ll = ctypes.c_longlong
+    lib.gc_remove_cycles_v2.restype = ll
+    lib.gc_remove_cycles_v2.argtypes = [
+        ll, ll,                 # num_nodes, num_edges
+        i32, i32, i32,          # src, dst, weight
+        u8,                     # alive (in/out)
+    ]
+    lib.gc_overlap_nogap_pairs.restype = ll
+    lib.gc_overlap_nogap_pairs.argtypes = [
+        ll, ll,                 # n_pairs, stride (width)
+        i8, i32,                # reads (U, W), lens
+        i32, i32,               # ia, ib
+        ll, ll,                 # match, mismatch
+        i32, i32,               # score out, end out
+        ll,                     # n_threads
+    ]
+    lib.gc_local_align_batch.restype = ll
+    lib.gc_local_align_batch.argtypes = [
+        ll, ll,                 # B, q_stride
+        i8, i32,                # q codes (B, qs), q_len
+        ll, i8,                 # m (genome len), genome codes (m,)
+        i32,                    # w_len (suffix window per item)
+        ll, ll, ll,             # match, mismatch, indel
+        ll,                     # ops_stride
+        i32, i32, i32, i32,     # score, bi, bj, steps out
+        u8,                     # ops out (B, ops_stride)
+        ll,                     # n_threads
+    ]
+
+
+def load():
+    """Build (if needed) and load the engine; raises RuntimeError or
+    OSError when either fails."""
+    global _LIB
+    if _LIB is None:
+        path = build_shared_library("graphcore", SOURCE, GXX,
+                                    timeout=BUILD_TIMEOUT_S)
+        lib = ctypes.CDLL(path)
+        _declare(lib)
+        _LIB = lib
+    return _LIB
+
+
+def _n_threads() -> int:
+    return min(os.cpu_count() or 1, 8)
+
+
+def remove_cycles(g) -> int:
+    """C++ weakest-edge cycle removal; mutates g.alive. Returns #removed."""
+    lib = load()
+    alive = np.ascontiguousarray(g.alive, dtype=np.uint8)
+    src = np.ascontiguousarray(g.src, dtype=np.int32)
+    dst = np.ascontiguousarray(g.dst, dtype=np.int32)
+    weight = np.ascontiguousarray(g.weight, dtype=np.int32)
+    removed = lib.gc_remove_cycles_v2(g.num_nodes, len(src), src, dst,
+                                      weight, alive)
+    g.alive[:] = alive.astype(bool)
+    return int(removed)
+
+
+def overlap_nogap_pairs(reads_mat, lens, ia, ib, match_score: int = 10,
+                        mismatch: int = -1):
+    """C++ no-gap overlap scoring over candidate index pairs.
+
+    reads_mat: (U, W) int8 LEFT-aligned unique-read codes; lens: (U,)
+    int32; ia/ib: (P,) int32 pair indices. Returns (score, end) int32 (P,)
+    arrays — the same function as the all-pairs kernel, per pair."""
+    lib = load()
+    reads_mat = np.ascontiguousarray(reads_mat, dtype=np.int8)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    ia = np.ascontiguousarray(ia, dtype=np.int32)
+    ib = np.ascontiguousarray(ib, dtype=np.int32)
+    n_pairs = len(ia)
+    score = np.empty(n_pairs, np.int32)
+    end = np.empty(n_pairs, np.int32)
+    if n_pairs:
+        lib.gc_overlap_nogap_pairs(n_pairs, reads_mat.shape[1], reads_mat,
+                                   lens, ia, ib, match_score, mismatch,
+                                   score, end, _n_threads())
+    return score, end
+
+
+def local_align_batch_suffix_windows(queries: list[str], genome_codes,
+                                     w_len, match_score: int = 10,
+                                     mismatch: int = -1, indel: int = -1):
+    """Batched C++ Smith-Waterman of queries against per-item SUFFIX
+    windows of one genome (the two window shapes of the metrics pass:
+    full genome, or the tail window genome[-n:]).
+
+    Returns (score, bi, bj, steps, ops): int32 arrays (B,) and the
+    (B, ops_stride) uint8 op-stream matrix; item p's path is
+    ops[p, :steps[p]] in backwards order, coordinates LOCAL to the window
+    (the caller adds the m - w offset)."""
+    from ..core.encoding import encode_batch
+
+    lib = load()
+    B = len(queries)
+    genome = np.ascontiguousarray(genome_codes, dtype=np.int8)
+    m = len(genome)
+    q_mat, q_len = encode_batch(queries)
+    q_mat = np.ascontiguousarray(q_mat, dtype=np.int8)
+    wl = np.ascontiguousarray(w_len, dtype=np.int32)
+    q_stride = q_mat.shape[1] if B else 0
+    ops_stride = q_stride + m
+    score = np.empty(B, np.int32)
+    bi = np.empty(B, np.int32)
+    bj = np.empty(B, np.int32)
+    steps = np.empty(B, np.int32)
+    ops = np.empty((max(B, 1), max(ops_stride, 1)), np.uint8)
+    if B:
+        lib.gc_local_align_batch(B, q_stride, q_mat, q_len, m, genome, wl,
+                                 match_score, mismatch, indel, ops.shape[1],
+                                 score, bi, bj, steps, ops, _n_threads())
+    return score, bi, bj, steps, ops

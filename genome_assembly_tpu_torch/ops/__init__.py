@@ -1,0 +1,13 @@
+from .overlap import right_align
+from .overlap_allpairs import (
+    overlap_scores_all_pairs,
+    overlap_scores_block,
+    overlap_scores_block_plain,
+)
+
+__all__ = [
+    "overlap_scores_all_pairs",
+    "overlap_scores_block",
+    "overlap_scores_block_plain",
+    "right_align",
+]

@@ -1,0 +1,201 @@
+"""All-pairs / block overlap scoring: a hand-written CUDA kernel for Hopper
+and its plain PyTorch version.
+
+For every ordered pair (a_i, b_t) of reads, the no-gap overlap score of a's
+suffix against b's prefix ending at j (reference ``aligners.py:6-82``
+semantics with the default penalties, where gaps are never selected):
+
+    d        = min(len(a_i), j)
+    score(j) = (match - mismatch) * matches(a_i[-d:], b_t[j-d:j]) + mismatch * d
+
+and the first strict maximum over j = 0 .. len(b_t) (score 0 at j = 0).
+Returns (score, end) (Na, Nb) int32 matrices.
+
+``overlap_scores_block`` is the counterpart of the JAX package's Pallas
+``overlap_scores_block``. It drops the TPU tiling arguments (``tm``, ``tn``,
+``jc``, ``interpret``, ``shift``): on a CUDA tensor it launches
+``csrc/overlap_allpairs.cu`` (built with ``nvcc`` at first use), on a CPU
+tensor it runs ``overlap_scores_block_plain``, the counterpart of
+``overlap_scores_block_xla``. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+
+import torch
+
+from .._build import build_shared_library
+from .overlap import right_align
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "overlap_allpairs.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+BUILD_TIMEOUT_S = 300
+MAX_L = 1023          # the JAX kernel's packed end-position field
+MAX_ROWS_A = 65535 * 8  # grid.y limit times the kernel's a-rows per block
+
+# Kernel launches since the last reset; set to 0 to start counting.
+launches = 0
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def load_kernel():
+    """Build (if needed) and load the kernel library; raises RuntimeError
+    with nvcc's output when the build fails."""
+    global _LIB
+    if _LIB is None:
+        path = build_shared_library("overlap_allpairs", SOURCE,
+                                    [_nvcc(), *NVCC_FLAGS],
+                                    timeout=BUILD_TIMEOUT_S)
+        lib = ctypes.CDLL(path)
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.overlap_allpairs_launch.restype = i
+        lib.overlap_allpairs_launch.argtypes = [
+            vp, vp, ll,          # a codes, a_len, na
+            vp, vp, ll,          # b codes, b_len, nb
+            i, i, i,             # L, match, mismatch
+            vp, vp,              # score out, end out
+            vp, i,               # stream, device index
+        ]
+        _LIB = lib
+    return _LIB
+
+
+def _check_inputs(a_codes, a_len, b_codes, b_len, match_score, mismatch):
+    """Raise on inputs that the kernel (or the JAX kernel) does not take."""
+    if a_codes.dim() != 2 or b_codes.dim() != 2:
+        raise ValueError("a_codes and b_codes must be (N, L) matrices")
+    na, l = a_codes.shape
+    nb, lb = b_codes.shape
+    if l != lb:
+        raise ValueError(
+            f"source and target reads must share the padded width: {l} != {lb}")
+    if tuple(a_len.shape) != (na,) or tuple(b_len.shape) != (nb,):
+        raise ValueError("a_len / b_len must be (Na,) / (Nb,) vectors")
+    if a_codes.dtype != torch.int8 or b_codes.dtype != torch.int8:
+        raise ValueError("read codes must be int8")
+    if a_len.dtype != torch.int32 or b_len.dtype != torch.int32:
+        raise ValueError("lengths must be int32")
+    devices = {t.device for t in (a_codes, a_len, b_codes, b_len)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on more than one device: {devices}")
+    # the same limits as the JAX kernel (its packed f32 running max), so
+    # that both packages accept the same inputs
+    if max(match_score, -mismatch) * l * 4096 + 1023 >= 2**24:
+        raise ValueError(
+            f"score/end packing of the reference kernel is not exact for "
+            f"match={match_score}, mismatch={mismatch}, L={l}")
+    if l > MAX_L:
+        raise ValueError(f"padded width {l} exceeds {MAX_L}; chunk reads")
+
+
+def overlap_scores_block(a_codes: torch.Tensor, a_len: torch.Tensor,
+                         b_codes: torch.Tensor, b_len: torch.Tensor,
+                         match_score: int = 10, mismatch: int = -1):
+    """Score the (Na x Nb) block of ordered pairs (a_i, b_t).
+
+    Args:
+        a_codes: (Na, L) int8 LEFT-aligned source reads (PAD-padded).
+        a_len:   (Na,) int32 true lengths, in [0, L].
+        b_codes: (Nb, L) int8 LEFT-aligned target reads.
+        b_len:   (Nb,) int32, in [0, L].
+
+    Returns:
+        (score, end_pos): (Na, Nb) int32 tensors on the inputs' device.
+        Self/duplicate pairs are NOT excluded here (callers do).
+
+    CUDA tensors go to the kernel (launched on the current stream, not
+    synchronised); CPU tensors to ``overlap_scores_block_plain``.
+    """
+    global launches
+    _check_inputs(a_codes, a_len, b_codes, b_len, match_score, mismatch)
+    dev = a_codes.device
+    if dev.type == "cpu":
+        return overlap_scores_block_plain(a_codes, a_len, b_codes, b_len,
+                                          match_score, mismatch)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("a_codes", a_codes), ("a_len", a_len),
+                    ("b_codes", b_codes), ("b_len", b_len)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    na, l = a_codes.shape
+    nb = b_codes.shape[0]
+    if na > MAX_ROWS_A:
+        raise ValueError(f"{na} source rows exceed the grid's {MAX_ROWS_A}")
+    score = torch.empty((na, nb), dtype=torch.int32, device=dev)
+    end = torch.empty((na, nb), dtype=torch.int32, device=dev)
+    if na == 0 or nb == 0:
+        return score, end
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.overlap_allpairs_launch(
+        a_codes.data_ptr(), a_len.data_ptr(), na,
+        b_codes.data_ptr(), b_len.data_ptr(), nb,
+        l, match_score, mismatch, score.data_ptr(), end.data_ptr(),
+        stream, dev.index if dev.index is not None
+        else torch.cuda.current_device())
+    if err != 0:
+        raise RuntimeError(f"overlap_allpairs kernel launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+    return score, end
+
+
+def overlap_scores_all_pairs(codes: torch.Tensor, lengths: torch.Tensor,
+                             match_score: int = 10, mismatch: int = -1):
+    """Square all-pairs case of `overlap_scores_block` (same read set as
+    both source and target, i == t diagonal included)."""
+    return overlap_scores_block(codes, lengths, codes, lengths,
+                                match_score=match_score, mismatch=mismatch)
+
+
+def _one_hot4(codes: torch.Tensor) -> torch.Tensor:
+    """(..., L) int8 -> (..., L, 4) float32 one-hot; PAD (4) -> zeros."""
+    return (codes[..., None].to(torch.int64)
+            == torch.arange(4, device=codes.device)).to(torch.float32)
+
+
+def overlap_scores_block_plain(a_codes: torch.Tensor, a_len: torch.Tensor,
+                               b_codes: torch.Tensor, b_len: torch.Tensor,
+                               match_score: int = 10, mismatch: int = -1):
+    """The same function in plain PyTorch, mirroring the JAX package's
+    ``overlap_scores_block_xla``: for each j a float32 one-hot product
+    (Na, 4L) @ (4L, Nb) counts the matches, with TF32 off so the counts
+    are exact. Runs on any device; the CPU tests and the kernel's checks
+    on the card use it."""
+    na, l = a_codes.shape
+    nb = b_codes.shape[0]
+    dev = a_codes.device
+    a_len = a_len.to(torch.int32)
+    b_len = b_len.to(torch.int32)
+    a_flat = _one_hot4(right_align(a_codes, a_len)).reshape(na, 4 * l)
+    oh_b = _one_hot4(b_codes)                                  # (nb, l, 4)
+    best = torch.zeros((na, nb), dtype=torch.int32, device=dev)
+    end = torch.zeros((na, nb), dtype=torch.int32, device=dev)
+    pos = torch.arange(l, device=dev)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for j in range(1, l + 1):
+            src = pos + j - l
+            in_win = (src >= 0).to(torch.float32)[None, :, None]
+            bsh = (oh_b[:, src.clamp(0, l - 1), :] * in_win).reshape(nb, 4 * l)
+            matches = torch.round(a_flat @ bsh.T).to(torch.int32)
+            d = torch.clamp(a_len[:, None], max=j)
+            score = (match_score - mismatch) * matches + mismatch * d
+            upd = (j <= b_len)[None, :] & (score > best)
+            best = torch.where(upd, score, best)
+            end = torch.where(upd, torch.full_like(end, j), end)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return best, end
