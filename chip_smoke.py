@@ -11,14 +11,18 @@ Phases, each printed with the elapsed seconds as it ends:
    graph engine (g++) from the sources in this checkout, in parallel;
 3. kernel against its plain PyTorch version on the card, exact equality of
    score and end on every case (ragged, rectangular, non-default
-   penalties, L=127, reads of length 0 and 1, and a 256-row slice of the
-   main path's own reads against all of them);
+   penalties, L=127, reads of length 0 and 1, a 256-row slice of the
+   main path's own reads against all of them, and the cases the
+   tensor-core design can get wrong: N inside reads, tiles cut ragged,
+   1x1, lengths <= 8, L=1023, reads against themselves with one base
+   changed, for ties, rows at an odd address, and penalties whose factor
+   the kernel cannot fold into its one-hot bytes);
 4. main path: ``test_assembly`` on PhiX at N=10000, l=150, p=0.01, k=5,
    seed 0, on the card; its contigs and measures must equal the JAX
    package's (the constants below, guarded by tests/test_torch_smoke.py),
    and the kernel must have been launched;
-5. kernel time at the main path's shape with CUDA events, beside its bound
-   and the plain version's time.
+5. kernel time at the main path's shape with CUDA events, beside its bound,
+   the tensor-core ops the kernel performs and the plain version's time.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -112,6 +116,36 @@ def random_batch(rs, n: int, L: int, lengths=None):
     return codes, lengths
 
 
+def with_n(rs, codes, lengths, per_read: int = 4) -> None:
+    """Put N (code 4) at ``per_read`` random places inside every other read's
+    length, in place."""
+    for r in range(0, len(codes), 2):
+        if lengths[r] > 0:
+            codes[r, rs.randint(0, lengths[r], size=per_read)] = 4
+
+
+def at_odd_address(codes, dev):
+    """A contiguous device copy of ``codes`` whose data starts one byte
+    past an allocation's start (the kernel's 16-byte loads cannot be used)."""
+    import torch
+
+    flat = torch.empty(codes.size + 1, dtype=torch.int8, device=dev)
+    view = flat[1:].view(codes.shape)
+    view.copy_(torch.from_numpy(codes))
+    return view
+
+
+def tensor_core_ops(a_len, b_len) -> int:
+    """int8 ops the kernel performs on the tensor cores: per pair, j runs
+    ceil(j/8) k-steps of 8 positions x 4 channels, a multiply-add each."""
+    import numpy as np
+
+    n = np.asarray(b_len, np.int64)
+    k = (n + 7) // 8                       # sum_{j<=n} 8 ceil(j/8)
+    per_b = 8 * (8 * (k - 1) * k // 2 + k * (n - 8 * (k - 1)))
+    return 2 * 4 * len(a_len) * int(per_b.sum())
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -185,16 +219,46 @@ def main() -> int:
     cases.append(("128x96, L=60, match=3 mismatch=-2", a, al, b, bl, 3, -2))
     a, al = random_batch(rs, 64, 127)
     cases.append(("64x64, L=127", a, al, a, al, 10, -1))
+    a, al = random_batch(rs, 100, 60)
+    cases.append(("100x100, L=60, match=40 mismatch=-1 (factor not folded)",
+                  a, al, a, al, 40, -1))
     edge_lens = rs.choice([0, 1, 1, 2, 3, 150], size=70)
     a, al = random_batch(rs, 70, 150, edge_lens)
     cases.append(("70x70, lengths 0/1/2/3/150", a, al, a, al, 10, -1))
     cases.append(("main path reads, 256 x %d, L=%d" % main_codes.shape,
                   main_codes[:256], main_lens[:256], main_codes, main_lens,
                   10, -1))
+    # cases the tensor-core design can get wrong
+    a, al = random_batch(rs, 96, 150)
+    with_n(rs, a, al)
+    cases.append(("96x96 with internal N (N facing N on the diagonal)",
+                  a, al, a, al, 10, -1))
+    a, al = random_batch(rs, 129, 150)
+    b, bl = random_batch(rs, 257, 150)
+    cases.append(("129x257 ragged, L=150", a, al, b, bl, 10, -1))
+    a, al = random_batch(rs, 1, 150)
+    cases.append(("1x1, L=150", a, al, a, al, 10, -1))
+    a, al = random_batch(rs, 100, 150, rs.randint(0, 9, size=100))
+    cases.append(("100x100, lengths <= 8", a, al, a, al, 10, -1))
+    a, al = random_batch(rs, 40, oa.MAX_L)
+    cases.append(("40x40, L=%d, match=4 mismatch=-1" % oa.MAX_L,
+                  a, al, a, al, 4, -1))
+    b = main_codes[:256].copy()
+    rows = np.arange(256)
+    pos = rs.randint(0, main_lens[:256])
+    b[rows, pos] = (b[rows, pos] + 1) % 4
+    cases.append(("main path reads, 256 x 256 against one base changed",
+                  main_codes[:256], main_lens[:256], b, main_lens[:256],
+                  10, -1))
+    a, al = random_batch(rs, 150, 150)
+    b, bl = random_batch(rs, 140, 150)
+    cases.append(("150x140, L=150, rows at an odd address",
+                  at_odd_address(a, dev), al, at_odd_address(b, dev), bl,
+                  10, -1))
     max_abs_err = 0
     for name, a, al, b, bl, ms, mm in cases:
-        ta, tal = torch.from_numpy(a).to(dev), torch.from_numpy(al).to(dev)
-        tb, tbl = torch.from_numpy(b).to(dev), torch.from_numpy(bl).to(dev)
+        ta, tal = torch.as_tensor(a, device=dev), torch.as_tensor(al, device=dev)
+        tb, tbl = torch.as_tensor(b, device=dev), torch.as_tensor(bl, device=dev)
         s_k, e_k = oa.overlap_scores_block(ta, tal, tb, tbl, ms, mm)
         s_p, e_p = oa.overlap_scores_block_plain(ta, tal, tb, tbl, ms, mm)
         torch.cuda.synchronize()
@@ -271,12 +335,16 @@ def main() -> int:
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    tc_ops = tensor_core_ops(main_lens, main_lens)
     log(f"phase 5 kernel time at {na}x{na}, L={L}: {kernel_ms:.3f} ms "
         f"(mean of {reps}); plain version {plain_ms:.1f} ms; bound "
         f"{bound_ms:.3f} ms by {bound_by} ({n_cmp} comparisons = "
         f"{OPS_PER_COMPARISON * n_cmp} int8 ops -> {ops_ms:.3f} ms; "
-        f"{n_bytes} B -> {bytes_ms:.3f} ms); peak device memory "
-        f"{kernel_peak} B; card {card_line}")
+        f"{n_bytes} B -> {bytes_ms:.3f} ms); kernel at "
+        f"{bound_ms / kernel_ms:.3f} of its bound; tensor-core ops performed "
+        f"{tc_ops} -> {tc_ops / PEAK_INT8_OPS * 1e3:.3f} ms at the int8 "
+        f"peak, {tc_ops / (kernel_ms * 1e-3) / 1e12:.1f} TOP/s achieved; "
+        f"peak device memory {kernel_peak} B; card {card_line}")
 
     print(json.dumps({"kernels": [{
         "name": "overlap_allpairs",

@@ -17,6 +17,11 @@ Returns (score, end) (Na, Nb) int32 matrices.
 ``csrc/overlap_allpairs.cu`` (built with ``nvcc`` at first use), on a CPU
 tensor it runs ``overlap_scores_block_plain``, the counterpart of
 ``overlap_scores_block_xla``. There is no fallback between the two.
+
+The kernel counts matches on the tensor cores: bases as one-hot bytes, one
+int8 product (``wgmma``) per j over only the positions that j aligns, and a
+running max of one int32 key, score * 1024 + (1023 - j), per pair. PAD and
+N match nothing, as in ``overlap_scores_block_xla``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 300
 MAX_L = 1023          # the JAX kernel's packed end-position field
-MAX_ROWS_A = 65535 * 8  # grid.y limit times the kernel's a-rows per block
+# The kernel counts rows in int32. Its tiles (128 x 128 pairs, or 128 x 16
+# for long reads) lie on grid.x, whose 2**31 - 1 blocks outlast any output
+# that fits in device memory.
+MAX_ROWS = 2**31 - 1
 
 # Kernel launches since the last reset; set to 0 to start counting.
 launches = 0
@@ -130,8 +138,14 @@ def overlap_scores_block(a_codes: torch.Tensor, a_len: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     na, l = a_codes.shape
     nb = b_codes.shape[0]
-    if na > MAX_ROWS_A:
-        raise ValueError(f"{na} source rows exceed the grid's {MAX_ROWS_A}")
+    if max(na, nb) > MAX_ROWS:
+        raise ValueError(f"{max(na, nb)} rows exceed the kernel's {MAX_ROWS}")
+    # the kernel's int32 key, score * 1024 + 1023 - j, and its terms
+    if ((abs(match_score - mismatch) + abs(mismatch)) * l * 1024 + 1023
+            >= 2**31):
+        raise ValueError(
+            f"the kernel's int32 key overflows for match={match_score}, "
+            f"mismatch={mismatch}, L={l}")
     score = torch.empty((na, nb), dtype=torch.int32, device=dev)
     end = torch.empty((na, nb), dtype=torch.int32, device=dev)
     if na == 0 or nb == 0:

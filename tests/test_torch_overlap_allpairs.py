@@ -42,16 +42,38 @@ def _case(name):
         ca, la = encode_batch(_random_reads(rng, 16, 12), width=12)
         cb, lb = encode_batch(_random_reads(rng, 12, 12), width=12)
         return ca, la, cb, lb, 3, -2
+    if name == "penalties 40/-1":
+        # match - mismatch = 41: too large for the kernel to fold into its
+        # one-hot bytes, so its epilogue multiplies
+        ca, la = encode_batch(_random_reads(rng, 14, 12), width=12)
+        cb, lb = encode_batch(_random_reads(rng, 11, 12), width=12)
+        return ca, la, cb, lb, 40, -1
     if name == "l127":
         # tests/test_overlap_allpairs.py's (8 reads, L=127) case: chainrev
         # pads j past the lane count there and falls back to the matmul shift
         ca, la = encode_batch(_random_reads(rng, 8, 127, min_len=121),
                               width=127)
         return ca, la, ca, la, 10, -1
+    if name == "lengths 0-3":
+        reads = [("".join(rng.choice(list("ACGT"), n)))
+                 for n in rng.choice([0, 1, 2, 3, 12], size=20)]
+        ca, la = encode_batch(reads, width=12)
+        return ca, la, ca, la, 10, -1
+    if name == "internal N":
+        # several N (PAD inside a read's length), some facing each other
+        reads = _random_reads(rng, 16, 24, min_len=10)
+        for r in range(0, 16, 2):
+            s = list(reads[r])
+            for p in rng.choice(len(s), size=3, replace=False):
+                s[p] = "N"
+            reads[r] = "".join(s)
+        ca, la = encode_batch(reads, width=24)
+        return ca, la, ca, la, 10, -1
     raise KeyError(name)
 
 
-CASES = ["square", "rectangular", "penalties", "l127"]
+CASES = ["square", "rectangular", "penalties", "penalties 40/-1", "l127"]
+EMULATED_CASES = CASES + ["lengths 0-3", "internal N"]
 
 
 def _plain(ca, la, cb, lb, ms, mm):
@@ -121,3 +143,105 @@ def test_rejects_bad_shapes_and_types():
         port.overlap_scores_block(codes.long(), lens, codes, lens)
     with pytest.raises(ValueError, match="vectors"):
         port.overlap_scores_block(codes, lens[:2], codes, lens)
+
+
+def test_plain_matches_xla_on_internal_n():
+    """The port follows the JAX package's one-hot XLA version, where an N
+    inside a read matches nothing (its Pallas kernels' simplex code gives
+    such a position a score of its own)."""
+    ca, la, cb, lb, ms, mm = _case("internal N")
+    assert ((ca == 4) & (np.arange(ca.shape[1]) < la[:, None])).sum() >= 24
+    s0, e0 = jax_block_xla(ca, la, cb, lb, match_score=ms, mismatch=mm)
+    s, e = _plain(ca, la, cb, lb, ms, mm)
+    np.testing.assert_array_equal(s, np.asarray(s0))
+    np.testing.assert_array_equal(e, np.asarray(e0))
+
+
+@pytest.mark.parametrize("variant", ["chainrev", "chain", "matmul"])
+def test_pallas_kernels_differ_on_internal_n(variant):
+    """A quirk of the reference, pinned so that its log stays true: the
+    Pallas bodies' +-1 simplex code gives an N inside a read a zero vector,
+    which their match count (S + d) / 4 does not score as a mismatch, so on
+    these reads they disagree with overlap_scores_block_xla (and with the
+    port)."""
+    ca, la, cb, lb, ms, mm = _case("internal N")
+    s0, e0 = map(np.asarray, jax_block_xla(ca, la, cb, lb, match_score=ms,
+                                           mismatch=mm))
+    s, e = map(np.asarray, jax_block(ca, la, cb, lb, match_score=ms,
+                                     mismatch=mm, tm=8, tn=128,
+                                     interpret=True, shift=variant))
+    assert s0.size == 256
+    assert int((s != s0).sum()) == 177
+    assert int((e != e0).sum()) == 27
+
+
+def _kernel_emulation(a, al, b, bl, match, mismatch, bn=128):
+    """numpy emulation of csrc/overlap_allpairs.cu's arithmetic: one-hot
+    words (4 channel bytes per position), the right-aligned a window with
+    zero positions after it, ceil(j/8) k-steps of 8 positions as 4-channel
+    byte products, and the packed int32 key max with its decode. Tiles of
+    ``bn`` b-rows run j up to their longest b, unmasked; a column's output is
+    its key at j = len(b), or score 0 at j = 0 for an empty b."""
+    na, l = a.shape
+    nb = b.shape[0]
+    al = np.clip(al.astype(np.int64), 0, l)
+    bl = np.clip(bl.astype(np.int64), 0, l)
+    kp = (l + 7) // 8 * 8
+    sab = l + 7                              # bytes the window can reach
+
+    # the kernel folds (match - mismatch) * 1024 into its one-hot bytes
+    # (8 diff in a's, 128 in b's) when the diff is 1..31
+    diff = match - mismatch
+    va, vb = (8 * diff, 128) if 1 <= diff <= 31 else (1, 1)
+    assert max(va, vb) <= 255
+
+    def one_hot(codes):                      # (..., 4) channel bytes
+        return vb * (codes[..., None] == np.arange(4)).astype(np.int64)
+
+    # A: shift bytes 8*code of right-aligned positions, 32 elsewhere, and
+    # the kernel's word va << shift (0 for a shift of 32)
+    shift = np.full((na, sab), 32, np.int64)
+    for i in range(na):
+        n = al[i]
+        row = a[i, :n].astype(np.int64)
+        shift[i, l - n:l] = np.where((row >= 0) & (row < 4), 8 * row, 32)
+    words = np.where(shift < 32, np.left_shift(va, np.minimum(shift, 31)), 0)
+    a_bytes = (words[..., None] >> (8 * np.arange(4))) & 0xFF  # (na, sab, 4)
+    # B: one-hot prefix, zero past len b and up to kp positions
+    b_pad = np.full((nb, kp), 4, np.int8)
+    b_pad[:, :l] = b
+    b_pad[np.arange(kp)[None, :] >= bl[:, None]] = 4
+    b_bytes = one_hot(b_pad)                                   # (nb, kp, 4)
+
+    d_key = diff * 1024 // (va * vb)             # 1 when folded
+
+    def counts(j, rows, cols):               # M_j: ceil(j/8) k-steps
+        m = 0
+        for s in range((j + 7) // 8):
+            win = a_bytes[rows, l - j + 8 * s:l - j + 8 * s + 8]    # (r,8,4)
+            m = m + np.einsum("ipc,tpc->it", win,
+                              b_bytes[cols, 8 * s:8 * s + 8])
+        return m
+
+    key_out = np.full((na, nb), 1023, np.int64)
+    for t0 in range(0, nb, bn):
+        cols = np.arange(t0, min(t0 + bn, nb))
+        key = np.full((na, len(cols)), 1023, np.int64)
+        for j in range(1, bl[cols].max() + 1):
+            c = mismatch * np.minimum(al, j) * 1024 + 1023 - j
+            val = counts(j, slice(None), cols) * d_key + c[:, None]
+            assert np.abs(val).max() < 2**31
+            key = np.maximum(key, val)
+            ended = bl[cols] == j             # write columns ending at j
+            key_out[:, cols[ended]] = key[:, ended]
+    return ((key_out >> 10).astype(np.int32),
+            (1023 - (key_out & 1023)).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", EMULATED_CASES)
+def test_kernel_arithmetic_matches_plain(case):
+    ca, la, cb, lb, ms, mm = _case(case)
+    s, e = _kernel_emulation(ca, la, cb, lb, ms, mm, bn=8)
+    s0, e0 = _plain(ca, la, cb, lb, ms, mm)
+    np.testing.assert_array_equal(s, s0)
+    np.testing.assert_array_equal(e, e0)
