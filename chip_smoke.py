@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,37 @@ Phases, each printed with the elapsed seconds as it ends:
 
 1. device: a CUDA card must be present (exit 1 otherwise); prints the
    card's name and power limit as nvidia-smi gives them;
-2. build: compiles the all-pairs overlap kernel (nvcc, sm_90a) and the C++
-   graph engine (g++) from the sources in this checkout, in parallel;
-3. kernel against its plain PyTorch version on the card, exact equality of
-   score and end on every case (ragged, rectangular, non-default
-   penalties, L=127, reads of length 0 and 1, a 256-row slice of the
-   main path's own reads against all of them, and the cases the
-   tensor-core design can get wrong: N inside reads, tiles cut ragged,
-   1x1, lengths <= 8, L=1023, reads against themselves with one base
-   changed, for ties, rows at an odd address, and penalties whose factor
-   the kernel cannot fold into its one-hot bytes);
+2. build: compiles the all-pairs overlap kernel and the two Smith-Waterman
+   kernels (nvcc, sm_90a, one call per source) and the C++ graph engine
+   (g++) from the sources in this checkout, all in parallel;
+3. each kernel against its plain PyTorch version on the card, exact
+   equality on every case. The overlap kernel: score and end (ragged,
+   rectangular, non-default penalties, L=127, reads of length 0 and 1, a
+   256-row slice of the main path's own reads against all of them, N
+   inside reads, tiles cut ragged, 1x1, lengths <= 8, L=1023, reads
+   against themselves with one base changed, rows at an odd address, and
+   penalties whose factor the kernel cannot fold into its one-hot bytes).
+   The Smith-Waterman kernels: score, best_i, best_j, start_j and the op
+   stream (ragged batches, ties, N inside query and window, q_len 0 and
+   window length 0, queries longer than their window, tail windows,
+   penalties 5/-3/-2; banded at bands 1, 64 and 2048 with d0 negative, at
+   0, near m and wholly outside the genome); after phases 4 and 4b, 64 of
+   each path's own contigs, and every item of the long path's full-width
+   calls;
 4. main path: ``test_assembly`` on PhiX at N=10000, l=150, p=0.01, k=5,
    seed 0, on the card; its contigs and measures must equal the JAX
    package's (the constants below, guarded by tests/test_torch_smoke.py),
-   and the kernel must have been launched;
-5. kernel time at the main path's shape with CUDA events, beside its bound,
-   the tensor-core ops the kernel performs and the plain version's time.
+   and the overlap kernel and the full-width SW kernel must have been
+   launched;
+4b. long-genome path: ``test_assembly`` on a 50,000 bp random genome at
+   N=15000, l=150, p=0.005, k=15 (scripts/long_genome_demo.py's exact
+   k=15 row), on the card; both SW kernels must have been launched and the
+   result must equal the JAX package's (LONG_EXPECTED);
+5. each kernel's time at its path's own inputs with CUDA events, beside
+   its bound and the plain version's time; for the SW kernels also DP
+   cells, GCUPS, their code traffic and the C++ engine's time on the same
+   items (a host figure, not a library call), and their outputs on every
+   item of those calls held against the plain version's (exact).
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -77,8 +92,68 @@ PEAK_BYTES_PER_S = 3.35e12
 # a multiply-add per channel, 6 ops, priced at the card's int8 peak.
 OPS_PER_COMPARISON = 6
 
+# The long-genome path: scripts/long_genome_demo.py's "exact, k=15" row at
+# its default size (a 50,000 bp genome from random.Random(0), N=15000,
+# l=150, p=0.005, read seeds random.Random(1) and RandomState(2)). Its
+# metrics pass takes the banded route (genome >= 16,384 bp).
+LONG = {"genome_len": 50_000, "genome_seed": 0, "read_length": 150,
+        "num_reads": 15_000, "error_prob": 0.005, "k": 15, "rng_seed": 1,
+        "np_seed": 2}
+LONG_EXPECTED = {
+    "contigs": 11901,
+    "n50": 150,
+    "total_length": 1814753,
+    "sha256": "cf4f0c279017e061011d12c28c90355692a6a2c6cc3c5db12d5d9dd82a25568d",
+    "measures": {
+        "Number of Contigs": 11901,
+        "Genome Coverage": 0.99986,
+        "N50": 150,
+        "Mismatch Rate Aligned Regions": 0.7057188006320885,
+        "Mismatch Rate Genome Level": 0.70576,
+    },
+}
+
 KERNEL_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_allpairs.cu"
 KERNEL_REPLACES = "genome_assembly_tpu/ops/overlap_allpairs.py:312"
+SW_SOURCE = "genome_assembly_tpu_torch/csrc/smith_waterman.cu"
+# XLA programs of the JAX package (not Pallas kernels)
+SW_FULL_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:155"
+SW_BANDED_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:174"
+# The SW kernels' fewest integer operations per DP cell (substitution
+# select, DPX max of the three moves with the 0 clamp, code select),
+# priced at 132 SMs x 64 int32 lanes x the SM clock.
+SW_OPS_PER_CELL = 3
+SMS, INT32_LANES = 132, 64
+# The plain SW versions' traceback codes (one byte a DP cell) in one chunk
+# of phase 5's comparison on a path's own calls.
+PLAIN_CODES_BUDGET = 2 << 30
+
+
+def long_genome() -> str:
+    rng = random.Random(LONG["genome_seed"])
+    return "".join(rng.choice("ACGT") for _ in range(LONG["genome_len"]))
+
+
+class CallRecorder:
+    """Wraps a kernel wrapper of ops/smith_waterman.py: passes every call
+    through unchanged and keeps its inputs, so phase 5 can time the kernel
+    on exactly the items a path gave it."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def record(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.inner(*args, **kwargs)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
 
 
 def contig_summary(contigs: list[str]) -> dict:
@@ -146,6 +221,295 @@ def tensor_core_ops(a_len, b_len) -> int:
     return 2 * 4 * len(a_len) * int(per_b.sum())
 
 
+def cut_queries(rs, genome_codes, lengths, subst: float = 0.02):
+    """Queries cut from the genome at random offsets, with substitutions
+    and, in every fourth, a short insertion and a deletion (gap moves)."""
+    import numpy as np
+
+    m = len(genome_codes)
+    width = max(1, int(max(lengths)))
+    q = np.full((len(lengths), width), 4, np.int8)
+    for r, n in enumerate(lengths):
+        if n == 0:
+            continue
+        start = rs.randint(0, max(1, m - n - 8))
+        row = genome_codes[start:start + n + 8].copy()
+        if r % 4 == 0 and n > 40:
+            row = np.r_[row[:n // 3], rs.randint(0, 4, 3).astype(np.int8),
+                        row[n // 3:2 * n // 3], row[2 * n // 3 + 2:]]
+        row = row[:n]
+        flip = rs.rand(len(row)) < subst
+        row[flip] = (row[flip] + rs.randint(1, 4, flip.sum())) % 4
+        q[r, :len(row)] = row
+    return q, np.asarray(lengths, np.int32)
+
+
+def sw_full_cases(rs, genome_codes):
+    """(name, queries, q_len, genome, w_len, penalties) for phase 3."""
+    import numpy as np
+
+    m = len(genome_codes)
+    cases = []
+    q, ql = cut_queries(rs, genome_codes, rs.randint(1, 401, size=96))
+    wl = np.where(rs.rand(96) < 0.3, ql, m).astype(np.int32)
+    cases.append(("96 ragged queries (1-400) against the genome and tail "
+                  "windows", q, ql, genome_codes, wl, (10, -1, -1)))
+    two = np.tile(np.array([0, 1, 1, 0, 1], np.int8), 600)
+    q, ql = cut_queries(rs, two, rs.randint(5, 200, size=48), subst=0.0)
+    cases.append(("ties: 48 queries on a two-letter repeat genome", q, ql,
+                  two, np.full(48, len(two), np.int32), (10, -1, -1)))
+    g_n = genome_codes.copy()
+    g_n[rs.randint(0, m, 40)] = 4
+    q, ql = cut_queries(rs, g_n, rs.randint(50, 300, size=48))
+    q[np.arange(48), rs.randint(0, 50, 48)] = 4
+    cases.append(("N inside query and window", q, ql, g_n,
+                  np.full(48, m, np.int32), (10, -1, -1)))
+    q, ql = cut_queries(rs, genome_codes, np.r_[[0] * 6, rs.randint(1, 200,
+                                                                     10)])
+    wl = np.r_[np.full(3, m), np.zeros(3), np.zeros(4), np.full(6, m)]
+    cases.append(("q_len 0 and window length 0", q, ql, genome_codes,
+                  wl.astype(np.int32), (10, -1, -1)))
+    q, ql = cut_queries(rs, genome_codes, np.full(40, 300))
+    cases.append(("queries longer than their windows", q, ql, genome_codes,
+                  rs.randint(1, 300, 40).astype(np.int32), (10, -1, -1)))
+    lens = rs.randint(20, 150, size=40)
+    q = np.full((40, 150), 4, np.int8)
+    for r, n in enumerate(lens):
+        q[r, :n] = genome_codes[m - n:]
+        pos = rs.randint(0, n)
+        q[r, pos] = (q[r, pos] + 1) % 4
+    cases.append(("tail windows", q, lens.astype(np.int32), genome_codes,
+                  lens.astype(np.int32), (10, -1, -1)))
+    q, ql = cut_queries(rs, genome_codes, rs.randint(1, 300, size=48),
+                        subst=0.1)
+    cases.append(("penalties 5/-3/-2", q, ql, genome_codes,
+                  np.full(48, m, np.int32), (5, -3, -2)))
+    return cases
+
+
+def sw_banded_cases(rs, genome_codes):
+    """(name, queries, q_len, genome, d0, band, penalties) for phase 3:
+    diagonals at the queries' own offsets, negative, 0, near m and wholly
+    outside the genome."""
+    import numpy as np
+
+    m = len(genome_codes)
+    cases = []
+    for band, pen in ((1, (10, -1, -1)), (64, (10, -1, -1)),
+                      (2048, (10, -1, -1)), (64, (5, -3, -2))):
+        lens = rs.randint(100, 600, size=48)
+        q = np.full((48, 600), 4, np.int8)
+        d0 = np.zeros(48, np.int32)
+        for r, n in enumerate(lens):
+            start = rs.randint(0, m - n)
+            q[r, :n] = genome_codes[start:start + n]
+            flip = rs.rand(n) < 0.02
+            q[r, :n][flip] = (q[r, :n][flip] + 1) % 4
+            d0[r] = start + rs.randint(-band // 2 - 1, band // 2 + 2)
+        d0[:8] = [-300, -band - 1, 0, m - 50, m - 1, m + band + 10,
+                  -band - 700, 10 * m]
+        cases.append((f"banded, band {band}, penalties {pen}", q, lens.astype(
+            np.int32), genome_codes, d0, band, pen))
+    return cases
+
+
+def sw_equal(kernel_out, plain_out):
+    """(equal, max abs err) over score, best_i, best_j, op streams and
+    start_j of the kernel and the plain version."""
+    import torch
+
+    err = 0
+    for a, b in zip(kernel_out, plain_out):
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return all(torch.equal(a, b) for a, b in zip(kernel_out, plain_out)), err
+
+
+def shape_classes(kind: str, args):
+    """A recorded call's items keyed by the JAX device path's shape class
+    (length bucket, and window kind or band), as align_to_ref's host calls
+    group them; returns (keys, lengths)."""
+    import numpy as np
+
+    from genome_assembly_tpu_torch.metrics.align_to_ref import _bucket
+
+    queries, q_len, genome, per_item = args[:4]
+    n = q_len.cpu().numpy()
+    second = (per_item.cpu().numpy() == genome.numel() if kind == "full"
+              else np.full(len(n), args[4]))
+    return [(_bucket(int(a)), int(b)) for a, b in zip(n, second)], n
+
+
+def run_plain(kind: str, args, kwargs, idx, n):
+    """The plain version of a recorded call on the items `idx`, with the
+    queries cut to their longest length."""
+    import torch
+
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    plain = sw.sw_full_width_plain if kind == "full" else sw.sw_banded_plain
+    queries, q_len, genome, per_item = args[:4]
+    sel = torch.tensor(idx, device=queries.device)
+    width = int(n[idx].max()) or 1
+    return plain(queries[sel, :width].contiguous(), q_len[sel], genome,
+                 per_item[sel], *args[4:], **kwargs)
+
+
+def check_calls(kind: str, calls, kernel_outs):
+    """Hold the kernel's outputs on every item of the recorded calls
+    against the plain version's: score, best_i, best_j, the op streams and
+    start_j, exactly. The plain version runs in chunks of one shape class
+    whose codes (one byte a cell) fit PLAIN_CODES_BUDGET, its outputs
+    scattered back into item order. Returns (equal, max abs err)."""
+    import torch
+
+    from genome_assembly_tpu_torch.metrics import align_to_ref
+
+    equal, err = True, 0
+    for (args, kwargs), got in zip(calls, kernel_outs):
+        keys, n = shape_classes(kind, args)
+        cols = args[2].numel() + 1 if kind == "full" else 2 * args[4] + 1
+        want = [torch.zeros_like(t) for t in got]
+        for cls in align_to_ref._batches(keys, torch.device("cpu"),
+                                         max(1, len(keys))):
+            step = max(1, PLAIN_CODES_BUDGET
+                       // (max(1, int(n[cls].max())) * cols))
+            for lo in range(0, len(cls), step):
+                idx = cls[lo:lo + step]
+                sel = torch.tensor(idx, device=got[0].device)
+                for w, o in zip(want, run_plain(kind, args, kwargs, idx, n)):
+                    if w.dim() == 1:
+                        w[sel] = o
+                    else:
+                        w[sel, :o.shape[1]] = o
+        ok, e = sw_equal(got, want)
+        equal, err = equal and ok, max(err, e)
+    return equal, err
+
+
+def time_sw(kind: str, calls, reps: int, sm_clock_hz: float,
+            plain_subset: bool) -> dict:
+    """Time one SW kernel on the recorded calls of a path and hold its
+    outputs on every item against the plain version's (`check_calls`).
+
+    The kernel: CUDA events over `reps` passes. The plain version: in the
+    JAX device path's chunks (shape class, at most 128 items), every chunk;
+    with `plain_subset`, the first chunk of each class of each call, its
+    time scaled by the class's items over the chunk's. The C++ engine on
+    the same items. With the DP cells, the bound and the design's code
+    traffic."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.metrics import align_to_ref
+    from genome_assembly_tpu_torch.native import graphcore
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    kernel = sw.sw_full_width if kind == "full" else sw.sw_banded
+    dev = calls[0][0][0].device
+    cells = n_bytes = code_written = items = 0
+    for args, kwargs in calls:
+        queries, q_len, genome, per_item = args[:4]
+        n = q_len.cpu().numpy().astype(np.int64)
+        B, n_pad = queries.shape
+        items += B
+        if kind == "full":
+            w = per_item.cpu().numpy().astype(np.int64)
+            cells += int((n * w).sum())
+            strips = np.where((n > 0) & (w > 0), (n + 31) // 32, 0)
+            code_written += int((strips * ((w + 46) // 16) * 128).sum())
+            stride = n_pad + genome.numel()
+        else:
+            band = args[4]
+            cells += int(n.sum()) * (2 * band + 1)
+            strips = (n + 31) // 32
+            code_written += int(strips.sum()) * ((2 * band + 78) // 16) * 128
+            stride = 2 * n_pad + 2 * band + 1
+        # each input read once (codes, genome, lengths), each output written
+        # once (the op streams and four ints per item)
+        n_bytes += B * n_pad + genome.numel() + 8 * B + B * stride + 16 * B
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs = [kernel(*args, **kwargs) for args, kwargs in calls]  # warm-up
+    code_read = 4 * sum(int((out[3] != 0).sum()) for out in outs)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for args, kwargs in calls:
+            kernel(*args, **kwargs)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the kernels' own device time, without the wrappers' host planning and
+    # copies, from a profiler trace of one more pass (None: the trace held
+    # no device time for them)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args, kwargs in calls:
+            kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+    name = "sw_kernel<false>" if kind == "full" else "sw_kernel<true>"
+    device_us = sum(getattr(e, "device_time_total", 0)
+                    for e in prof.key_averages() if name in e.key)
+    kernel_only_ms = device_us / 1e3 if device_us else None
+
+    plain_ms, plain_items = 0.0, 0
+    for args, kwargs in calls:
+        keys, n = shape_classes(kind, args)
+        chunks = align_to_ref._batches(keys, torch.device("cpu"), 128)
+        if plain_subset:
+            per_class = Counter(keys)
+            firsts: dict = {}
+            for chunk in chunks:
+                firsts.setdefault(keys[chunk[0]], chunk)
+            todo = [(c, per_class[k] / len(c)) for k, c in firsts.items()]
+        else:
+            todo = [(c, 1.0) for c in chunks]
+        for chunk, scale in todo:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_plain(kind, args, kwargs, chunk, n)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t) * 1e3 * scale
+            plain_items += len(chunk)
+
+    t = time.perf_counter()
+    for args, kwargs in calls:
+        queries, q_len, genome, per_item = (x.cpu().numpy()
+                                            for x in args[:4])
+        strings = ["".join("ACGTN"[c] for c in row[:k])
+                   for row, k in zip(queries, q_len)]
+        if kind == "full":
+            graphcore.local_align_batch_suffix_windows(
+                strings, genome, per_item, **kwargs)
+        else:
+            graphcore.local_align_banded_batch(strings, genome, per_item,
+                                               args[4], **kwargs)
+    cpp_ms = (time.perf_counter() - t) * 1e3
+
+    equal, err = check_calls(kind, calls, outs)
+    ops_ms = SW_OPS_PER_CELL * cells / (SMS * INT32_LANES * sm_clock_hz) \
+        * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "items": items, "cells": cells, "ms": ms,
+        "gcups": cells / (ms * 1e-3) / 1e9,
+        "ops_ms": ops_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "code_bytes_written": code_written, "code_bytes_read": code_read,
+        "peak": peak, "plain_ms": plain_ms, "plain_items": plain_items,
+        "cpp_ms": cpp_ms, "kernel_only_ms": kernel_only_ms,
+        "equal": equal, "max_abs_err": err,
+    }
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -164,6 +528,11 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card_line = smi.stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm_clock_hz = float(clock.stdout.strip().splitlines()[0]) * 1e6
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} card(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -177,9 +546,12 @@ def main() -> int:
     from genome_assembly_tpu_torch import _build
     from genome_assembly_tpu_torch.core.encoding import encode_batch
     from genome_assembly_tpu_torch.experiments.runner import test_assembly
+    from genome_assembly_tpu_torch.core.encoding import encode
     from genome_assembly_tpu_torch.graph.build import dedup_reads
+    from genome_assembly_tpu_torch.metrics import align_to_ref
     from genome_assembly_tpu_torch.native import graphcore
     from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
     from genome_assembly_tpu_torch.simulate import (
         generate_error_free_reads,
         generate_error_prone_reads,
@@ -190,12 +562,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- phase 2: build --------------------------------------------------
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(oa.load_kernel), pool.submit(graphcore.load)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = [pool.submit(oa.load_kernel), pool.submit(sw.load_kernel),
+                   pool.submit(graphcore.load)]
         for f in futures:
             f.result()
     log(f"phase 2 build: nvcc overlap_allpairs "
-        f"{_build.BUILD_SECONDS['overlap_allpairs']}s, g++ graphcore "
+        f"{_build.BUILD_SECONDS['overlap_allpairs']}s, nvcc smith_waterman "
+        f"{_build.BUILD_SECONDS['smith_waterman']}s, g++ graphcore "
         f"{_build.BUILD_SECONDS['graphcore']}s (None: already built)")
 
     # ---- phase 3: kernel == plain version on the card --------------------
@@ -270,14 +644,47 @@ def main() -> int:
             return 1
         log(f"phase 3 kernel == plain: {name}")
 
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in arrays]
+
+    sw_err = {"full": 0, "banded": 0}
+
+    def check_sw(kind, name, args, kwargs) -> bool:
+        if kind == "full":
+            got = sw.sw_full_width(*args, **kwargs)
+            want = sw.sw_full_width_plain(*args, **kwargs)
+        else:
+            got = sw.sw_banded(*args, **kwargs)
+            want = sw.sw_banded_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        equal, err = sw_equal(got, want)
+        sw_err[kind] = max(sw_err[kind], err)
+        log(f"phase 3 SW {kind} kernel {'==' if equal else '!='} plain: "
+            f"{name} (max abs err {err})")
+        return equal
+
+    phix_codes = encode(genome)
+    lg = long_genome()
+    lg_codes = encode(lg)
+    for name, q, ql, g, wl, pen in sw_full_cases(rs, phix_codes):
+        if not check_sw("full", name, on_card(q, ql, g, wl), dict(
+                match_score=pen[0], mismatch=pen[1], indel=pen[2])):
+            return 1
+    for name, q, ql, g, d0, band, pen in sw_banded_cases(rs, lg_codes):
+        if not check_sw("banded", name, (*on_card(q, ql, g, d0), band), dict(
+                match_score=pen[0], mismatch=pen[1], indel=pen[2])):
+            return 1
+
     # ---- phase 4: the main path ------------------------------------------
     tracer = global_tracer()
     tracer.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    oa.launches = 0
+    oa.launches = sw.full_width_launches = sw.banded_launches = 0
     t_main = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            CallRecorder(sw, "sw_full_width") as main_full_calls:
         contigs, measures, _, _ = test_assembly(
             genome, READ_LENGTH, NUM_READS, ERROR_PROB, K, "smoke", 1,
             path=tmp, rng=random.Random(SEED),
@@ -285,6 +692,7 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = oa.launches
+    main_sw_launches = sw.full_width_launches
     main_peak = torch.cuda.max_memory_allocated(dev)
     stages = tracer.as_dict()
     got = {**contig_summary(contigs), "measures": measures}
@@ -292,13 +700,14 @@ def main() -> int:
         f"pairs={stages['score.pairs']['items']}, "
         f"edges={stages['graph.remove_cycles']['items']}, "
         f"contigs={got['contigs']}, N50={got['n50']}, "
-        f"total length={got['total_length']}, kernel launches={launches}, "
-        f"peak device memory={main_peak} B")
+        f"total length={got['total_length']}, overlap kernel launches="
+        f"{launches}, SW full-width launches={main_sw_launches}, banded "
+        f"{sw.banded_launches}, peak device memory={main_peak} B")
     log(f"phase 4 measures: {json.dumps(measures)}")
     for line in tracer.report().splitlines():
         log(f"phase 4 stage {line}")
-    if launches < 1:
-        log("phase 4 FAILED: the main path never launched the kernel")
+    if launches < 1 or main_sw_launches < 1:
+        log("phase 4 FAILED: the main path did not launch both kernels")
         return 1
     if got != EXPECTED:
         log(f"phase 4 FAILED: result differs from the JAX package's:\n"
@@ -306,6 +715,76 @@ def main() -> int:
             f"  expected {json.dumps(EXPECTED)}")
         return 1
     log("phase 4 result == JAX package's")
+
+    # ---- phase 4b: the long-genome path ---------------------------------
+    tracer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    oa.launches = sw.full_width_launches = sw.banded_launches = 0
+    t_long = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            CallRecorder(sw, "sw_full_width") as long_full_calls, \
+            CallRecorder(sw, "sw_banded") as long_banded_calls:
+        long_contigs, long_measures, _, _ = test_assembly(
+            lg, LONG["read_length"], LONG["num_reads"], LONG["error_prob"],
+            LONG["k"], "long", 1, path=tmp,
+            rng=random.Random(LONG["rng_seed"]),
+            np_rng=np.random.RandomState(LONG["np_seed"]), device="cuda")
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t_long
+    long_launches = {"overlap": oa.launches,
+                     "full": sw.full_width_launches,
+                     "banded": sw.banded_launches}
+    long_peak = torch.cuda.max_memory_allocated(dev)
+    long_got = {**contig_summary(long_contigs), "measures": long_measures}
+    log(f"phase 4b long-genome path: {long_s:.2f}s, G={len(lg)}, "
+        f"contigs={long_got['contigs']}, N50={long_got['n50']}, launches "
+        f"{json.dumps(long_launches)}, banded calls "
+        f"{len(long_banded_calls.calls)}, peak device memory={long_peak} B")
+    log(f"phase 4b measures: {json.dumps(long_measures)}")
+    for line in tracer.report().splitlines():
+        log(f"phase 4b stage {line}")
+    if long_launches["full"] < 1 or long_launches["banded"] < 1:
+        log("phase 4b FAILED: the long-genome path did not launch both SW "
+            "kernels")
+        return 1
+    if long_got != LONG_EXPECTED:
+        log(f"phase 4b FAILED: result differs from the JAX package's:\n"
+            f"  got      {json.dumps(long_got)}\n"
+            f"  expected {json.dumps(LONG_EXPECTED)}")
+        return 1
+    log("phase 4b result == JAX package's")
+
+    # ---- phase 3 on the paths' own contigs --------------------------------
+    _, main_full_window, _ = align_to_ref.split_contigs(
+        contigs, genome, READ_LENGTH)
+    q, ql = encode_batch(main_full_window[:64])
+    if not check_sw("full", "64 main path contigs against the whole genome",
+                    on_card(q, ql, phix_codes,
+                            np.full(len(ql), len(genome), np.int32)), {}):
+        return 1
+    _, long_full_window, _ = align_to_ref.split_contigs(
+        long_contigs, lg, LONG["read_length"])
+    plan = align_to_ref._banded_plan(long_full_window[:64], lg, 64, 15, [])
+    for band in sorted({bb for _, _, bb, _ in plan}):
+        sel = [(c, d0) for c, d0, bb, _ in plan if bb == band]
+        q, ql = encode_batch([c for c, _ in sel])
+        d0 = np.array([d for _, d in sel], np.int32)
+        if not check_sw("banded", f"{len(sel)} long-path contigs at their "
+                        f"seeded centre, band {band}",
+                        (*on_card(q, ql, lg_codes, d0), band), {}):
+            return 1
+    # every item of the long path's full-width calls (its banded calls and
+    # the main path's full-width call: phase 5, which times them)
+    equal, err = check_calls(
+        "full", long_full_calls.calls,
+        [sw.sw_full_width(*a, **k) for a, k in long_full_calls.calls])
+    sw_err["full"] = max(sw_err["full"], err)
+    log(f"phase 3 SW full kernel {'==' if equal else '!='} plain on every "
+        f"item of the long path's {len(long_full_calls.calls)} full-width "
+        f"call(s) (max abs err {err})")
+    if not equal:
+        return 1
 
     # ---- phase 5: kernel time at the main path's shape --------------------
     codes = torch.from_numpy(main_codes).to(dev)
@@ -346,7 +825,7 @@ def main() -> int:
         f"peak, {tc_ops / (kernel_ms * 1e-3) / 1e12:.1f} TOP/s achieved; "
         f"peak device memory {kernel_peak} B; card {card_line}")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "overlap_allpairs",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -358,7 +837,64 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+
+    # ---- phase 5: the SW kernels at their paths' own items ---------------
+    sw_paths = (
+        ("full", "sw_full_width", main_full_calls.calls, main_sw_launches,
+         SW_FULL_REPLACES, "PhiX main path"),
+        ("banded", "sw_banded", long_banded_calls.calls,
+         long_launches["banded"], SW_BANDED_REPLACES,
+         "long-genome path"),
+    )
+    for kind, name, calls, n_launch, replaces, path in sw_paths:
+        # the plain banded version takes 30-60 s over all 23,028 items in
+        # the JAX chunks, so its time there comes from a subset
+        timing = time_sw(kind, calls, reps=3, sm_clock_hz=sm_clock_hz,
+                         plain_subset=kind == "banded")
+        sw_err[kind] = max(sw_err[kind], timing["max_abs_err"])
+        log(f"phase 5 SW {kind} kernel {'==' if timing['equal'] else '!='} "
+            f"plain on every item of the {path}'s {len(calls)} call(s) "
+            f"(max abs err {timing['max_abs_err']})")
+        if not timing["equal"]:
+            return 1
+        plain_how = ("every chunk" if kind == "full" else
+                     f"the first chunk of each class of each call, "
+                     f"{timing['plain_items']} of {timing['items']} items, "
+                     f"each scaled by its class's items")
+        log(f"phase 5 {name} on the {path}'s {timing['items']} items in "
+            f"{len(calls)} call(s): {timing['ms']:.3f} ms (mean of 3, CUDA "
+            f"events around the wrapper calls); {timing['cells']} DP cells, "
+            f"{timing['gcups']:.1f} GCUPS; the kernels alone (profiler) "
+            f"{timing['kernel_only_ms'] or 'not measured'} ms; bound "
+            f"{timing['bound_ms']:.3f} ms "
+            f"by {timing['bound_by']} ({SW_OPS_PER_CELL} int ops a cell at "
+            f"{SMS} SMs x {INT32_LANES} lanes x {sm_clock_hz / 1e6:.0f} MHz "
+            f"-> {timing['ops_ms']:.3f} ms; {timing['bytes']} B -> "
+            f"{timing['bytes_ms']:.4f} ms); kernel at "
+            f"{timing['bound_ms'] / timing['ms']:.3f} of its bound; design's "
+            f"code traffic {timing['code_bytes_written']} B written, "
+            f"{timing['code_bytes_read']} B read by the walks; peak device "
+            f"memory {timing['peak']} B; plain version "
+            f"{timing['plain_ms']:.1f} ms (in the JAX device path's chunks: "
+            f"shape classes, at most 128 items; timed over {plain_how}); "
+            f"C++ engine on the host "
+            f"{timing['cpp_ms']:.1f} ms ({graphcore._n_threads()} threads); "
+            f"card {card_line}")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SW_SOURCE,
+            "replaces": replaces,
+            "launches": n_launch,
+            "max_abs_err": sw_err[kind],
+            "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed; wall {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,15 +24,21 @@ def test_assembly(genome: str, l: int, N: int, error_prob: float, k: int,
                   experiment_name: str, num_iteration: int, path: str = "plots",
                   rng: random.Random | None = None,
                   np_rng: np.random.RandomState | None = None,
-                  plot_hooks=None, device="cuda", verbose: bool = False,
+                  plot_hooks=None, device="cuda", use_native: bool = True,
+                  verbose: bool = False, banded: bool | str = "auto",
                   exact_parity: bool = True, consensus: bool = False):
     """Run one assembly simulation; returns
     (contigs, measures, contigs_alignment_details, error_prone_reads).
 
     `device` is the torch device of the device stages ("cuda" by default;
-    raises without a card, pass "cpu" to run on the host). `path` is only
-    handed to `plot_hooks`. `exact_parity=False` and `consensus=True` are
-    not ported yet and raise NotImplementedError."""
+    True and False as in the JAX package: the card or the host; raises
+    without a card, pass "cpu" to run on the host). `path` is only handed
+    to `plot_hooks`. `banded` chooses the metrics pass's alignment route
+    (`calculate_measures`): "auto" bands genomes of 16384 bp or more with
+    seeded, stability-verified bands, True forces banding, False full
+    width. `use_native=False` (the Python cycle removal),
+    `exact_parity=False` and `consensus=True` are not ported yet and raise
+    NotImplementedError."""
     dev = resolve_device(device)
     with stage("simulate.reads", items=N):
         error_free = generate_error_free_reads(genome, l, N, rng=rng)
@@ -42,12 +48,12 @@ def test_assembly(genome: str, l: int, N: int, error_prob: float, k: int,
     params = {"N": N, "l": l, "k": k, "error_prob": error_prob,
               "experiment_name": experiment_name, "num_iteration": num_iteration}
     contigs = assemble_contigs_using_overlap_graphs(
-        error_prone, k=k, params=params, device=dev, verbose=verbose,
-        exact_parity=exact_parity, consensus=consensus)
+        error_prone, k=k, params=params, device=dev, use_native=use_native,
+        verbose=verbose, exact_parity=exact_parity, consensus=consensus)
 
     with stage("metrics.calculate", items=len(contigs)):
         measures, details = calculate_measures(
             contigs, error_prone, len(error_prone), l, error_prob, k, genome,
             experiment_name, num_iteration, path, plot_hooks=plot_hooks,
-            verbose=verbose, device=dev)
+            verbose=verbose, banded=banded, device=dev)
     return contigs, measures, details, error_prone

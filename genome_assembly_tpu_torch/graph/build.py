@@ -150,7 +150,8 @@ def _pairs_to_arrays(pairs):
     return ia, ib
 
 
-def score_pairs(unique_reads: list[str], pairs, device="cuda"):
+def score_pairs(unique_reads: list[str], pairs, chunk: int = 16384,
+                device="cuda"):
     """Score ordered unique-read pairs.
 
     `pairs` is a list of (ua, ub) tuples or an (ia, ib) index-array tuple.
@@ -161,8 +162,10 @@ def score_pairs(unique_reads: list[str], pairs, device="cuda"):
     entries are gathered on the device and copied to the host once. That
     holds up to DENSE_MAX_U unique reads, or at any U when the candidates
     are dense (>= 5% of U^2); otherwise the JAX package runs its sparse
-    chunked scorer, which is not ported yet (ROADMAP B4). On a CPU device
+    chunked scorer, which is not ported yet (ROADMAP A5). On a CPU device
     the C++ engine scores the pairs, as in the JAX package on a CPU backend.
+    `chunk` is the pair batch of that sparse route (JAX signature parity);
+    the dense and host routes take every pair at once.
 
     Feeds the global tracer's "score.pairs" stage.
     """
@@ -186,7 +189,7 @@ def _score_pairs_impl(unique_reads: list[str], ia, ib, dev: torch.device):
         raise NotImplementedError(
             f"{n_pairs} sparse candidate pairs over {u_count} > "
             f"{DENSE_MAX_U} unique reads need the sparse pair scorer "
-            "(ROADMAP B4), not ported yet")
+            "(ROADMAP A5), not ported yet")
     from ..ops.overlap_allpairs import overlap_scores_all_pairs
 
     codes = torch.from_numpy(left).to(dev)

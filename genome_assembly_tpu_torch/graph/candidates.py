@@ -18,7 +18,7 @@ Reads shorter than k use the whole read as both prefix and suffix
 key = Σ_{i<m} code_i·4^i + 4^m for m = min(len, k), injective across
 lengths; int64 keys hold k up to 31.
 
-The device join (ROADMAP B6) is not ported yet: the JAX package runs it
+The device join (ROADMAP A7) is not ported yet: the JAX package runs it
 only from 50,000 unique reads up, and this slice's main path has 9,510.
 """
 

@@ -15,9 +15,14 @@ from __future__ import annotations
 from .build import OverlapGraph
 
 
-def remove_cycles(g: OverlapGraph) -> int:
+def remove_cycles(g: OverlapGraph, use_native: bool = True) -> int:
     """Remove cycles in place (g.alive); returns the number of edges removed.
-    Raises when the C++ engine cannot be built or loaded."""
+    Raises when the C++ engine cannot be built or loaded. `use_native=False`
+    asks for the Python loop, which is not ported (ROADMAP A9)."""
+    if not use_native:
+        raise NotImplementedError(
+            "the Python cycle removal (use_native=False) is not ported "
+            "(ROADMAP A9)")
     from ..native import graphcore
 
     return graphcore.remove_cycles(g)

@@ -62,8 +62,15 @@ def create_contig(g: OverlapGraph, start_node: int, visited: set[int],
     return "".join(contig_parts)
 
 
-def walk_contigs(g: OverlapGraph, topo_nodes: list[int]) -> list[str]:
-    """All contigs in reference emission order (overlapGraphs.py:183-192)."""
+def walk_contigs(g: OverlapGraph, topo_nodes: list[int],
+                 with_placements: bool = False) -> list[str]:
+    """All contigs in reference emission order (overlapGraphs.py:183-192).
+    `with_placements=True` (the read placements of the consensus polish)
+    is not ported yet (ROADMAP A6)."""
+    if with_placements:
+        raise NotImplementedError(
+            "walk_contigs(with_placements=True) is not ported yet "
+            "(ROADMAP A6)")
     base_arr = g.base_array()
     base_order, topo_order = collapse_topo_order(g, topo_nodes)
     visited: set[int] = set()

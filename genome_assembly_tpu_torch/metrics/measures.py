@@ -27,6 +27,7 @@ import torch
 
 from ..core.config import METRIC_NAMES
 from ..core.dispatch import resolve_device
+from ..utils.tracing import stage
 from .align_to_ref import align_contigs_to_reference
 
 _DASH = np.uint8(ord("-"))
@@ -116,16 +117,25 @@ def calculate_measures(contigs: list[str], reads: list[str], num_reads: int,
                        ref_genome: str, experiment_name: str,
                        num_iteration: int, path: str = "plots",
                        plot_hooks=None, verbose: bool = False,
+                       banded: bool | str = "auto", band: int = 64,
                        device="cuda"):
     """Returns (measures, contigs_alignment_details) — reference
-    performanceMeasures.py:190-252 signature and output parity."""
+    performanceMeasures.py:190-252 signature and output parity.
+
+    `banded` and `band` choose the alignment route of the contigs
+    (``align_contigs_to_reference``): "auto" bands genomes of
+    BANDED_AUTO_MIN bp or more with seeded, stability-verified bands; True
+    forces banding; False forces full width. The alignment feeds the
+    tracer's "metrics.align" stage."""
     if verbose:
         print(f"Calculating performance measures for {experiment_name} "
               f"(Iteration {num_iteration})")
     dev = resolve_device(device)
     expected_coverage = num_reads * reads_length / len(ref_genome)
-    details = align_contigs_to_reference(contigs, ref_genome, reads_length,
-                                         device=dev)
+    with stage("metrics.align", items=len(contigs)):
+        details = align_contigs_to_reference(contigs, ref_genome,
+                                             reads_length, banded=banded,
+                                             band=band, device=dev)
 
     coverage_rate, mm_aligned, mm_genome = (
         calculate_genome_coverage_and_mismatch_rate(

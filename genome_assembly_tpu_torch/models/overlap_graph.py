@@ -21,6 +21,7 @@ from ..utils.tracing import stage
 def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
                                           params: dict | None = None,
                                           device="cuda",
+                                          use_native: bool = True,
                                           verbose: bool = False,
                                           exact_parity: bool = True,
                                           consensus: bool = False) -> list[str]:
@@ -32,7 +33,10 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
         params: optional run metadata (reference signature parity,
             overlapGraphs.py:151).
         device: torch device that scores the candidate pairs ("cuda" by
-            default; raises without a card).
+            default, True and False as in the JAX package; raises without
+            a card).
+        use_native: must be True: the C++ cycle removal (the Python one
+            is ROADMAP A9).
         exact_parity: must be True in this slice (the reference layout).
         consensus: must be False in this slice.
 
@@ -40,10 +44,12 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
     """
     if not exact_parity:
         raise NotImplementedError(
-            "the fast greedy layout (exact_parity=False) is not ported yet")
+            "the fast greedy layout (exact_parity=False) is not ported yet "
+            "(ROADMAP A6)")
     if consensus:
         raise NotImplementedError(
-            "the consensus polish (consensus=True) is not ported yet")
+            "the consensus polish (consensus=True) is not ported yet "
+            "(ROADMAP A6)")
     dev = resolve_device(device)
 
     def log(msg):
@@ -55,7 +61,7 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
         g = build_overlap_graph(reads, k=k, device=dev)
     log(f"Removing cycles ({len(g.src)} edges)...")
     with stage("graph.remove_cycles", items=len(g.src)):
-        remove_cycles(g)
+        remove_cycles(g, use_native=use_native)
     log("Sorting graph topologically...")
     with stage("graph.topo_sort"):
         topo_nodes = topological_order(g)

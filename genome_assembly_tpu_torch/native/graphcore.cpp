@@ -8,10 +8,11 @@
 // reference's documented 48-hour scaling wall (report p.4 footnote ii) —
 // the C++ engine is typically 100-1000x the Python/NetworkX loop.
 //
-// Exposed via a C ABI for ctypes (see graphcore.py). Three entry points,
+// Exposed via a C ABI for ctypes (see graphcore.py). Four entry points,
 // the ones this package calls: gc_remove_cycles_v2 (cycle removal),
-// gc_overlap_nogap_pairs (host pair scoring on a CPU device) and
-// gc_local_align_batch (the metrics pass's Smith-Waterman).
+// gc_overlap_nogap_pairs (host pair scoring on a CPU device),
+// gc_local_align_batch and gc_local_align_banded_batch (the metrics pass's
+// full-width and banded Smith-Waterman on a CPU device).
 
 #include <algorithm>
 #include <atomic>
@@ -369,9 +370,9 @@ int64_t gc_overlap_nogap_pairs(int64_t n_pairs, int64_t stride,
 // contig lengths are highly skewed). Per item the op stream is written to
 // ops_out[p * ops_stride ...] and its length to out_steps[p].
 //
-// This is the executor of align_contigs_to_reference on every device until
-// the device row scan is ported; its results are bit-identical to the JAX
-// package's row scan (ops/smith_waterman.py).
+// This is the full-width executor of align_contigs_to_reference on a CPU
+// device; its results are bit-identical to the row scan
+// (ops/smith_waterman.py) and to the card's kernel.
 int64_t gc_local_align_batch(int64_t B, int64_t q_stride, const int8_t* q,
                              const int32_t* q_len, int64_t m,
                              const int8_t* genome, const int32_t* w_len,
@@ -508,6 +509,215 @@ int64_t gc_local_align_batch(int64_t B, int64_t q_stride, const int8_t* q,
         if (code == 1) { --i; --j; }
         else if (code == 2) { --i; }
         else { --j; }
+      }
+      out_steps[p] = (int32_t)steps;
+    }
+  };
+  if (n_threads == 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (int64_t t = 0; t < n_threads; ++t) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
+  }
+  return B;
+}
+
+
+// Diagonal-banded Smith-Waterman over one shared genome — the CPU-backend
+// executor for the banded metrics path (ops/smith_waterman.py
+// local_align_batch_banded semantics, bit for bit): the DP is restricted
+// to |j - i - d0| <= band around a per-item seeded center diagonal; SW's
+// 0 clamp makes the band boundary behave exactly like a fresh local
+// start, so this is full SW restricted to in-band paths. Emits the same
+// backwards op stream as gc_local_align_batch; i/j returned in GLOBAL
+// genome coordinates. Row work is O(band), so a G-length genome costs
+// O(n * band) per contig instead of O(n * G).
+int64_t gc_local_align_banded_batch(
+    int64_t B, int64_t q_stride, const int8_t* q, const int32_t* q_len,
+    int64_t m, const int8_t* genome, const int32_t* d0, int64_t band,
+    int64_t match, int64_t mismatch, int64_t indel, int64_t ops_stride,
+    int32_t* out_score, int32_t* out_bi, int32_t* out_bj,
+    int32_t* out_steps, uint8_t* ops_out, int64_t n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  const int64_t wb = 2 * band + 1;
+  std::atomic<int64_t> cursor{0};
+  auto worker = [&]() {
+    std::vector<int64_t> prev, cur;
+    std::vector<int32_t> prev32, diag32, key32, run32, cur32;
+    std::vector<uint8_t> tb;
+    for (;;) {
+      const int64_t p = cursor.fetch_add(1);
+      if (p >= B) return;
+      const int64_t n = q_len[p];
+      const int8_t* qp = q + p * q_stride;
+      const int64_t c0 = d0[p];
+      if ((int64_t)tb.size() < (n + 1) * wb) tb.resize((n + 1) * wb);
+      int64_t best = 0, bi = 0, bt = 0;
+      // band coordinates: t in [0, wb), global j = c0 - band + i + t;
+      // moves: diag (i-1, t), up (i-1, t+1), left (i, t-1). Out-of-
+      // genome slots (j < 1 or j > m) are neg-inf walls; within a row
+      // they form a contiguous PREFIX and/or SUFFIX (j = jlo + t is
+      // monotone in t), so the valid interior is one interval and the
+      // left-chain max-plus prefix scan over it is exact (it never has
+      // to bridge an interior wall).
+      const int64_t hi_g =
+          std::max(std::max(match, -mismatch), -indel) + 1;
+      const bool fast = hi_g * (n + wb + 2) + (-indel) * (wb + 2) < (1 << 29);
+      if (fast) {
+        // vectorizable 3-pass row in band coordinates (bit-identical to
+        // the scalar cascade below; see gc_local_align_batch)
+        const int32_t NEG32 = INT32_MIN / 4;
+        const int32_t ma = (int32_t)match, mi = (int32_t)mismatch,
+                      in = (int32_t)indel;
+        if ((int64_t)prev32.size() < wb + 2) {
+          prev32.resize(wb + 2);
+          diag32.resize(wb + 2);
+          key32.resize(wb + 2);
+          run32.resize(wb + 2);
+          cur32.resize(wb + 2);
+        }
+        for (int64_t t = 0; t < wb + 2; ++t) prev32[t] = NEG32;
+        for (int64_t i = 1; i <= n; ++i) {
+          const int8_t qi = qp[i - 1];
+          const int64_t jlo = c0 - band + i;
+          uint8_t* tbrow = &tb[i * wb];
+          // valid slots [t0, t1], kept inside [0, wb) and empty (t1 =
+          // t0 - 1) when the row's band lies wholly outside the genome
+          // (the JAX package's copy writes out of bounds there)
+          const int64_t t0 = std::min<int64_t>(wb, std::max<int64_t>(0, 1 - jlo));
+          const int64_t t1 =
+              std::max<int64_t>(t0 - 1, std::min<int64_t>(wb - 1, m - jlo));
+          int32_t* RESTRICT pv = prev32.data();
+          int32_t* RESTRICT dg = diag32.data();
+          int32_t* RESTRICT ky = key32.data();
+          int32_t* RESTRICT rn = run32.data();
+          int32_t* RESTRICT cu = cur32.data();
+          cu[0] = NEG32;
+          cu[wb + 1] = NEG32;
+          for (int64_t t = 0; t < t0; ++t) {
+            cu[t + 1] = NEG32;
+            tbrow[t] = 0;
+          }
+          for (int64_t t = t1 + 1; t < wb; ++t) {
+            cu[t + 1] = NEG32;
+            tbrow[t] = 0;
+          }
+          const int8_t* RESTRICT gj = genome + jlo - 1;  // genome[j-1] at t
+          // pass 1: diag (NEGI diag source maps to 0 — device parity),
+          // c0 = max(diag, up, 0), max-plus key
+          for (int64_t t = t0; t <= t1; ++t) {
+            const int32_t pd = pv[t + 1];
+            const int32_t d =
+                (pd == NEG32 ? 0 : pd) + (qi == gj[t] ? ma : mi);
+            const int32_t u = pv[t + 2] + in;  // NEG32-ish stays huge-neg
+            int32_t cc = d > u ? d : u;
+            cc = cc > 0 ? cc : 0;
+            dg[t] = d;
+            ky[t] = cc - in * (int32_t)t;
+          }
+          // pass 2: prefix max; the wall left of t0 contributes nothing
+          prefix_max_i32(ky, rn, t0, t1, NEG32 / 2);
+          // pass 3: dp + cascade codes
+          for (int64_t t = t0; t <= t1; ++t) {
+            const int32_t dp = rn[t] + in * (int32_t)t;
+            const int32_t d = dg[t];
+            const int32_t u = pv[t + 2] + in;
+            const int32_t ldp =
+                (t == t0 ? NEG32 : rn[t - 1] + in * (int32_t)(t - 1));
+            const int32_t l = ldp + in;
+            uint8_t code = 0;
+            if (d >= u && d >= l && d >= 0) code = 1;
+            else if (u >= l && u >= 0) code = 2;
+            else if (l >= 0) code = 3;
+            cu[t + 1] = dp;
+            tbrow[t] = dp > 0 ? code : 0;
+          }
+          // pass 4: row max + first attaining slot
+          int32_t rowmax = 0;
+          for (int64_t t = t0; t <= t1; ++t)
+            rowmax = cu[t + 1] > rowmax ? cu[t + 1] : rowmax;
+          if (rowmax > best) {
+            for (int64_t t = t0; t <= t1; ++t) {
+              if (cu[t + 1] == rowmax) {
+                best = rowmax; bi = i; bt = t;
+                break;
+              }
+            }
+          }
+          std::swap(prev32, cur32);
+        }
+        goto banded_traceback;
+      }
+      if ((int64_t)prev.size() < wb + 2) {
+        prev.resize(wb + 2);
+        cur.resize(wb + 2);
+      }
+      {
+        const int64_t NEGI = INT64_MIN / 4;
+        for (int64_t t = 0; t < wb + 2; ++t) prev[t] = NEGI;
+        for (int64_t i = 1; i <= n; ++i) {
+          const int8_t qi = qp[i - 1];
+          const int64_t jlo = c0 - band + i;     // global j at t = 0
+          uint8_t* tbrow = &tb[i * wb];
+          cur[0] = NEGI;
+          cur[wb + 1] = NEGI;
+          for (int64_t t = 0; t < wb; ++t) {
+            const int64_t j = jlo + t;
+            if (j < 1 || j > m) {               // outside the genome
+              cur[t + 1] = NEGI;
+              tbrow[t] = 0;
+              continue;
+            }
+            // in-band predecessors; NEGI marks both the band walls and
+            // out-of-genome slots. The device kernel stores 0 at
+            // out-of-genome slots and lets the local-alignment 0 clamp
+            // absorb them; mapping NEGI -> 0 for the diag move
+            // reproduces that exactly, and gap moves from NEGI sources
+            // can never win the >= 0 cascade either way
+            // (selection-equivalent).
+            const int64_t pd = prev[t + 1];
+            const int64_t diag = (pd == NEGI ? 0 : pd)
+                + (qi == genome[j - 1] ? match : mismatch);
+            const int64_t up =
+                (prev[t + 2] == NEGI ? NEGI : prev[t + 2] + indel);
+            const int64_t left =
+                (cur[t] == NEGI ? NEGI : cur[t] + indel);
+            int64_t v = 0;
+            uint8_t code = 0;
+            if (diag >= up && diag >= left && diag >= 0) {
+              v = diag; code = 1;
+            } else if (up >= left && up >= 0) { v = up; code = 2; }
+            else if (left >= 0) { v = left; code = 3; }
+            cur[t + 1] = v;
+            tbrow[t] = v > 0 ? code : 0;
+            if (v > best) { best = v; bi = i; bt = t; }
+          }
+          std::swap(prev, cur);
+        }
+      }
+    banded_traceback:
+      if (best <= 0) {
+        out_score[p] = 0;
+        out_bi[p] = 0;
+        out_bj[p] = 0;
+        out_steps[p] = 0;
+        continue;
+      }
+      out_score[p] = (int32_t)best;
+      out_bi[p] = (int32_t)bi;
+      out_bj[p] = (int32_t)(c0 - band + bi + bt);
+      uint8_t* op = ops_out + p * ops_stride;
+      int64_t i = bi, t = bt, steps = 0;
+      while (i > 0) {
+        const int64_t j = c0 - band + i + t;
+        if (j <= 0) break;
+        const uint8_t code = tb[i * wb + t];
+        if (code == 0) break;
+        op[steps++] = code;
+        if (code == 1) { --i; }            // diag: (i-1, t)
+        else if (code == 2) { --i; ++t; }  // up:   (i-1, t+1)
+        else { --t; }                      // left: (i, t-1)
       }
       out_steps[p] = (int32_t)steps;
     }

@@ -57,6 +57,18 @@ def _declare(lib) -> None:
         u8,                     # ops out (B, ops_stride)
         ll,                     # n_threads
     ]
+    lib.gc_local_align_banded_batch.restype = ll
+    lib.gc_local_align_banded_batch.argtypes = [
+        ll, ll,                 # B, q_stride
+        i8, i32,                # q codes (B, qs), q_len
+        ll, i8,                 # m (genome len), genome codes (m,)
+        i32, ll,                # d0 (center diagonal per item), band
+        ll, ll, ll,             # match, mismatch, indel
+        ll,                     # ops_stride
+        i32, i32, i32, i32,     # score, bi, bj, steps out
+        u8,                     # ops out (B, ops_stride)
+        ll,                     # n_threads
+    ]
 
 
 def load():
@@ -142,4 +154,39 @@ def local_align_batch_suffix_windows(queries: list[str], genome_codes,
         lib.gc_local_align_batch(B, q_stride, q_mat, q_len, m, genome, wl,
                                  match_score, mismatch, indel, ops.shape[1],
                                  score, bi, bj, steps, ops, _n_threads())
+    return score, bi, bj, steps, ops
+
+
+def local_align_banded_batch(queries: list[str], genome_codes, d0,
+                             band: int, match_score: int = 10,
+                             mismatch: int = -1, indel: int = -1):
+    """Batched C++ diagonal-banded SW against one shared genome
+    (ops/smith_waterman.py local_align_batch_banded semantics).
+
+    d0: (B,) int32 center diagonal per item. Returns
+    (score, bi, bj, steps, ops) with bj in GLOBAL genome coordinates and
+    ops[p, :steps[p]] the backwards path stream (replay with
+    replay_ops_host against the full genome)."""
+    from ..core.encoding import encode_batch
+
+    lib = load()
+    B = len(queries)
+    genome = np.ascontiguousarray(genome_codes, dtype=np.int8)
+    m = len(genome)
+    q_mat, q_len = encode_batch(queries)
+    q_mat = np.ascontiguousarray(q_mat, dtype=np.int8)
+    d0 = np.ascontiguousarray(d0, dtype=np.int32)
+    q_stride = q_mat.shape[1] if B else 0
+    ops_stride = 2 * q_stride + 2 * band + 1
+    score = np.empty(B, np.int32)
+    bi = np.empty(B, np.int32)
+    bj = np.empty(B, np.int32)
+    steps = np.empty(B, np.int32)
+    ops = np.empty((max(B, 1), max(ops_stride, 1)), np.uint8)
+    if B:
+        lib.gc_local_align_banded_batch(B, q_stride, q_mat, q_len, m,
+                                        genome, d0, band, match_score,
+                                        mismatch, indel, ops.shape[1],
+                                        score, bi, bj, steps, ops,
+                                        _n_threads())
     return score, bi, bj, steps, ops

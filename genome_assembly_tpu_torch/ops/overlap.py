@@ -1,8 +1,8 @@
 """Read-layout ops shared by the overlap scorers.
 
 Only ``right_align`` is ported in this slice; the sparse pair scorer
-``overlap_scores`` (ROADMAP B4) and the gapped ``overlap_align_full``
-(ROADMAP B5) wait for theirs.
+``overlap_scores`` (ROADMAP A5) and the gapped ``overlap_align_full``
+(ROADMAP A9) wait for theirs.
 """
 
 from __future__ import annotations

@@ -96,6 +96,8 @@ def _check_inputs(a_codes, a_len, b_codes, b_len, match_score, mismatch):
     devices = {t.device for t in (a_codes, a_len, b_codes, b_len)}
     if len(devices) != 1:
         raise ValueError(f"inputs on more than one device: {devices}")
+    if a_codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a_codes.device}")
     # the same limits as the JAX kernel (its packed f32 running max), so
     # that both packages accept the same inputs
     if max(match_score, -mismatch) * l * 4096 + 1023 >= 2**24:
@@ -104,6 +106,11 @@ def _check_inputs(a_codes, a_len, b_codes, b_len, match_score, mismatch):
             f"match={match_score}, mismatch={mismatch}, L={l}")
     if l > MAX_L:
         raise ValueError(f"padded width {l} exceeds {MAX_L}; chunk reads")
+    # the kernel would clamp a length outside [0, L] where the plain
+    # version reads it as given: refuse both (one sync on a card)
+    for name, t in (("a_len", a_len), ("b_len", b_len)):
+        if t.numel() and bool(((t < 0) | (t > l)).any()):
+            raise ValueError(f"{name} must lie in [0, {l}]")
 
 
 def overlap_scores_block(a_codes: torch.Tensor, a_len: torch.Tensor,
@@ -130,8 +137,6 @@ def overlap_scores_block(a_codes: torch.Tensor, a_len: torch.Tensor,
     if dev.type == "cpu":
         return overlap_scores_block_plain(a_codes, a_len, b_codes, b_len,
                                           match_score, mismatch)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     for name, t in (("a_codes", a_codes), ("a_len", a_len),
                     ("b_codes", b_codes), ("b_len", b_len)):
         if not t.is_contiguous():

@@ -7,7 +7,7 @@ A->CGT, C->AGT, G->ACT, T->ACG.
 
 A copy of ``genome_assembly_tpu.simulate.errors.generate_error_prone_reads``:
 under the same seeded ``np.random.RandomState`` it gives bit-identical reads.
-The device injector (``inject_errors_device``, ROADMAP B9) is not ported yet.
+The device injector (``inject_errors_device``, ROADMAP A10) is not ported yet.
 """
 
 from __future__ import annotations

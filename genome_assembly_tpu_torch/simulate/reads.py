@@ -7,7 +7,7 @@ near the end are shorter, with length in [1, read_length].
 
 A copy of ``genome_assembly_tpu.simulate.reads.generate_error_free_reads``:
 under the same seeded ``random.Random`` it gives bit-identical reads. The
-device sampler (``sample_reads_device``, ROADMAP B9) is not ported yet.
+device sampler (``sample_reads_device``, ROADMAP A10) is not ported yet.
 """
 
 from __future__ import annotations

@@ -85,7 +85,7 @@ def test_sparse_route_beyond_dense_limit_is_not_ported(monkeypatch):
     monkeypatch.setattr(dispatch, "use_host_pair_scoring",
                         lambda device: False)
     monkeypatch.setattr(port_build, "DENSE_MAX_U", 4)
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="A5"):
         port_build.build_overlap_graph(reads, k=8, device="cpu")
 
 

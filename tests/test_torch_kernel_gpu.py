@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on a card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on a
+card: the all-pairs overlap kernel and the two Smith-Waterman kernels.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+from genome_assembly_tpu_torch.ops import smith_waterman as sw
 
 
 def _batch(rs, n, l, lengths=None):
@@ -158,3 +160,150 @@ def test_rejects_key_overflow(cuda_device):
     ta, tal = _to(cuda_device, a, al)
     with pytest.raises(ValueError, match="key overflows"):
         oa.overlap_scores_block(ta, tal, ta, tal, 1, 2000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [-1, "L+1"])
+def test_rejects_lengths_outside_the_padded_width(bad, cuda_device):
+    a, al = _batch(np.random.RandomState(4), 6, 20)
+    al[2] = 21 if bad == "L+1" else bad
+    ta, tal = _to(cuda_device, a, al)
+    with pytest.raises(ValueError, match="a_len"):
+        oa.overlap_scores_block(ta, tal, ta, tal)
+
+
+def _queries(rs, genome, lengths, subst=0.03):
+    """Queries cut from the genome, with substitutions and N."""
+    width = max(1, int(max(lengths)))
+    q = np.full((len(lengths), width), 4, np.int8)
+    for r, n in enumerate(lengths):
+        if n:
+            start = rs.randint(0, max(1, len(genome) - n))
+            row = genome[start:start + n].copy()
+            flip = rs.rand(len(row)) < subst
+            row[flip] = rs.randint(0, 5, flip.sum())
+            q[r, :len(row)] = row
+    return q, np.asarray(lengths, np.int32)
+
+
+def _sw_full_case(name):
+    rs = np.random.RandomState(21)
+    genome = rs.randint(0, 4, size=3000).astype(np.int8)
+    pen = (10, -1, -1)
+    if name == "ragged":
+        q, ql = _queries(rs, genome, rs.randint(1, 300, size=50))
+        wl = np.where(rs.rand(50) < 0.3, ql, 3000)
+    elif name == "ties":
+        genome = np.tile(np.array([0, 1, 1, 0, 1], np.int8), 300)
+        q, ql = _queries(rs, genome, rs.randint(5, 150, size=32), subst=0)
+        wl = np.full(32, len(genome))
+    elif name == "N in query and window":
+        genome[rs.randint(0, 3000, 30)] = 4
+        q, ql = _queries(rs, genome, rs.randint(40, 200, size=32), 0.1)
+        wl = np.full(32, 3000)
+    elif name == "empty query and window":
+        q, ql = _queries(rs, genome, [0, 0, 0, 50, 80, 1])
+        wl = np.array([3000, 0, 10, 0, 3000, 1])
+    elif name == "query longer than window":
+        q, ql = _queries(rs, genome, np.full(24, 200))
+        wl = rs.randint(1, 200, 24)
+    elif name == "tail windows":
+        lens = rs.randint(20, 150, size=24)
+        q = np.full((24, 150), 4, np.int8)
+        for r, n in enumerate(lens):
+            q[r, :n] = genome[3000 - n:]
+            q[r, n // 2] = (q[r, n // 2] + 1) % 4
+        ql, wl = lens.astype(np.int32), lens
+    elif name == "penalties 5/-3/-2":
+        q, ql = _queries(rs, genome, rs.randint(1, 300, size=40), 0.1)
+        wl = np.full(40, 3000)
+        pen = (5, -3, -2)
+    else:
+        raise KeyError(name)
+    return q, ql, genome, np.asarray(wl, np.int32), pen
+
+
+SW_FULL_CASES = ["ragged", "ties", "N in query and window",
+                 "empty query and window", "query longer than window",
+                 "tail windows", "penalties 5/-3/-2"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SW_FULL_CASES)
+def test_sw_full_width_kernel_equals_plain_version(case, cuda_device):
+    q, ql, genome, wl, pen = _sw_full_case(case)
+    args = _to(cuda_device, q, ql, genome, wl)
+    before = sw.full_width_launches
+    got = sw.sw_full_width(*args, *pen)
+    torch.cuda.synchronize()
+    assert sw.full_width_launches == before + 1
+    want = sw.sw_full_width_plain(*args, *pen)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [0, 1, 64, 2048])
+@pytest.mark.parametrize("pen", [(10, -1, -1), (5, -3, -2)])
+def test_sw_banded_kernel_equals_plain_version(band, pen, cuda_device):
+    rs = np.random.RandomState(band + 7)
+    genome = rs.randint(0, 4, size=20000).astype(np.int8)
+    q, ql = _queries(rs, genome, rs.randint(0, 400, size=40))
+    d0 = rs.randint(-100, 20100, size=40).astype(np.int32)
+    # negative, 0, near m, and bands wholly outside the genome
+    d0[:6] = [-50, 0, 19990, -band - 500, 20000 + band + 5, 10**6]
+    args = _to(cuda_device, q, ql, genome, d0)
+    before = sw.banded_launches
+    got = sw.sw_banded(*args, band, *pen)
+    torch.cuda.synchronize()
+    assert sw.banded_launches == before + 1
+    want = sw.sw_banded_plain(*args, band, *pen)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_sw_kernels_chunk_over_the_scratch_budget(cuda_device, monkeypatch):
+    q, ql, genome, wl, pen = _sw_full_case("ragged")
+    args = _to(cuda_device, q, ql, genome, wl)
+    whole = sw.sw_full_width(*args)
+    monkeypatch.setattr(sw, "SCRATCH_BUDGET_BYTES", 1 << 20)
+    before = sw.full_width_launches
+    chunked = sw.sw_full_width(*args)
+    assert sw.full_width_launches > before + 1
+    for g, w in zip(chunked, whole):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("banded", [False, True])
+def test_metrics_pass_on_the_card_stays_within_its_budgets(
+        banded, cuda_device, monkeypatch):
+    # 600 contigs against a 6 kb genome: one call's full-width op streams
+    # would take 600 x (300 + 6000) B = 3.8 MB; with the op-stream and
+    # scratch budgets cut to 256 KiB and 512 KiB, the pass runs in several
+    # calls and launches, its peak stays under 2 MiB, and its details
+    # equal the C++ engine's
+    from genome_assembly_tpu_torch.metrics import align_to_ref as atr
+
+    rs = np.random.RandomState(5)
+    genome = "".join("ACGT"[c] for c in rs.randint(0, 4, size=6000))
+    contigs = [genome[s:s + n] for s, n in zip(rs.randint(0, 5700, 600),
+                                               rs.randint(100, 300, 600))]
+    contigs = [c[:5] + "T" + c[6:] for c in contigs]
+    want = atr.align_contigs_to_reference(contigs, genome, 100, band=16,
+                                          banded=banded, executor="native",
+                                          device="cpu")
+    monkeypatch.setattr(atr, "CARD_OPS_BUDGET_BYTES", 256 << 10)
+    monkeypatch.setattr(sw, "SCRATCH_BUDGET_BYTES", 512 << 10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    before = sw.full_width_launches + sw.banded_launches
+    got = atr.align_contigs_to_reference(contigs, genome, 100, band=16,
+                                         banded=banded, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert got == want
+    assert sw.full_width_launches + sw.banded_launches - before > 8
+    assert peak < 2 << 20

@@ -16,6 +16,9 @@ from genome_assembly_tpu.experiments.runner import (
 )
 from genome_assembly_tpu.metrics.measures import calculate_n50
 from genome_assembly_tpu.simulate import read_genome_from_fasta
+from genome_assembly_tpu_torch.experiments.runner import (
+    test_assembly as run_port_assembly,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
@@ -46,6 +49,35 @@ def test_smoke_constants_match_jax_test_assembly(tmp_path):
         "measures": measures,
     }
     assert got == smoke.EXPECTED
+
+
+def _long_run(run, smoke, tmp_path, **kwargs):
+    lg = smoke.LONG
+    contigs, measures, _, _ = run(
+        smoke.long_genome(), lg["read_length"], lg["num_reads"],
+        lg["error_prob"], lg["k"], "long", 1, path=str(tmp_path),
+        rng=random.Random(lg["rng_seed"]),
+        np_rng=np.random.RandomState(lg["np_seed"]), **kwargs)
+    return {
+        "contigs": len(contigs),
+        "n50": calculate_n50(contigs),
+        "total_length": sum(len(c) for c in contigs),
+        "sha256": hashlib.sha256("\n".join(contigs).encode()).hexdigest(),
+        "measures": measures,
+    }
+
+
+def test_long_genome_constants_match_jax_test_assembly(tmp_path):
+    """The JAX package reproduces chip_smoke.py's long-genome constants (a
+    50,000 bp genome: the metrics pass takes the banded route)."""
+    smoke = _load_smoke()
+    assert _long_run(run_jax_assembly, smoke, tmp_path) == smoke.LONG_EXPECTED
+
+
+def test_port_long_genome_path_on_the_host(tmp_path):
+    smoke = _load_smoke()
+    assert (_long_run(run_port_assembly, smoke, tmp_path, device="cpu")
+            == smoke.LONG_EXPECTED)
 
 
 def test_smoke_fails_without_a_card():
