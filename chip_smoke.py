@@ -37,7 +37,12 @@ Phases, each printed with the elapsed seconds as it ends:
    its bound and the plain version's time; for the SW kernels also DP
    cells, GCUPS, their code traffic and the C++ engine's time on the same
    items (a host figure, not a library call), and their outputs on every
-   item of those calls held against the plain version's (exact).
+   item of those calls held against the plain version's (exact); then,
+   on the same calls, each SW kernel at every block size its launch
+   entries take (1, 2, 4 and 8 warps an item; CUDA events and its time
+   alone in a profiler trace), its outputs equal to those at the
+   wrapper's choice. Phases 4 and 4b print the warps a block the wrapper
+   gave each launch.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -135,19 +140,26 @@ def long_genome() -> str:
 
 
 class CallRecorder:
-    """Wraps a kernel wrapper of ops/smith_waterman.py: passes every call
-    through unchanged and keeps its inputs, so phase 5 can time the kernel
-    on exactly the items a path gave it."""
+    """Wraps a function of ops/smith_waterman.py: passes every call through
+    unchanged and keeps its inputs, so phase 5 can time the kernel on
+    exactly the items a path gave it, and with `keep_results` its results
+    (the warps a block the wrapper gave each launch; a kernel's outputs
+    are not kept, so that they do not count in a later peak)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep_results=False):
         self.module, self.name = module, name
         self.inner = getattr(module, name)
+        self.keep_results = keep_results
         self.calls = []
+        self.results = []
 
     def __enter__(self):
         def record(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.inner(*args, **kwargs)
+            out = self.inner(*args, **kwargs)
+            if self.keep_results:
+                self.results.append(out)
+            return out
 
         setattr(self.module, self.name, record)
         return self
@@ -431,33 +443,61 @@ def time_sw(kind: str, calls, reps: int, sm_clock_hz: float,
         # once (the op streams and four ints per item)
         n_bytes += B * n_pad + genome.numel() + 8 * B + B * stride + 16 * B
 
+    def kernel_times():
+        """CUDA events over `reps` passes of the calls (the wrappers' host
+        planning and copies included), and the kernels' own device time in
+        a profiler trace of one more pass (None: the trace held no device
+        time for them)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            for args, kwargs in calls:
+                kernel(*args, **kwargs)
+        stop.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args, kwargs in calls:
+                kernel(*args, **kwargs)
+            torch.cuda.synchronize()
+        # sw_kernel<banded, warps>: every instantiation of the kind
+        name = "sw_kernel<false" if kind == "full" else "sw_kernel<true"
+        device_us = sum(getattr(e, "device_time_total", 0)
+                        for e in prof.key_averages() if name in e.key)
+        # each launch's device time, in launch order
+        per_launch = [round(e.time_range.elapsed_us() / 1e3, 4)
+                      for e in prof.events() if name in e.name]
+        return start.elapsed_time(stop) / reps, (
+            device_us / 1e3 if device_us else None), per_launch
+
+    # (items, band or None, most strips of an item, strips in all, mean
+    # query length) of each call
+    launch_shapes = [(a[0].shape[0], a[4] if kind != "full" else None,
+                      int((a[1].max() + 31) // 32),
+                      int(((a[1].long() + 31) // 32).sum()),
+                      round(float(a[1].double().mean()), 2))
+                     for a, _ in calls]
     torch.cuda.reset_peak_memory_stats(dev)
     outs = [kernel(*args, **kwargs) for args, kwargs in calls]  # warm-up
     code_read = 4 * sum(int((out[3] != 0).sum()) for out in outs)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        for args, kwargs in calls:
-            kernel(*args, **kwargs)
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / reps
+    ms, kernel_only_ms, _ = kernel_times()
     peak = torch.cuda.max_memory_allocated(dev)
-    # the kernels' own device time, without the wrappers' host planning and
-    # copies, from a profiler trace of one more pass (None: the trace held
-    # no device time for them)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args, kwargs in calls:
-            kernel(*args, **kwargs)
-        torch.cuda.synchronize()
-    name = "sw_kernel<false>" if kind == "full" else "sw_kernel<true>"
-    device_us = sum(getattr(e, "device_time_total", 0)
-                    for e in prof.key_averages() if name in e.key)
-    kernel_only_ms = device_us / 1e3 if device_us else None
+    # every block size the launch entries take, on the same calls: times,
+    # and outputs equal to those at the wrapper's choice (which
+    # `check_calls` holds against the plain version)
+    by_warps = {}
+    pick = sw._warps_per_item
+    try:
+        for warps in sw.WARPS_PER_ITEM:
+            sw._warps_per_item = lambda strips, sms, w=warps: w
+            same = all(sw_equal(kernel(*args, **kwargs), out)[0]
+                       for (args, kwargs), out in zip(calls, outs))
+            by_warps[warps] = (*kernel_times(), same)
+    finally:
+        sw._warps_per_item = pick
 
     plain_ms, plain_items = 0.0, 0
     for args, kwargs in calls:
@@ -506,7 +546,9 @@ def time_sw(kind: str, calls, reps: int, sm_clock_hz: float,
         "code_bytes_written": code_written, "code_bytes_read": code_read,
         "peak": peak, "plain_ms": plain_ms, "plain_items": plain_items,
         "cpp_ms": cpp_ms, "kernel_only_ms": kernel_only_ms,
-        "equal": equal, "max_abs_err": err,
+        "by_warps": by_warps, "launches": launch_shapes,
+        "equal": equal and all(w[-1] for w in by_warps.values()),
+        "max_abs_err": err,
     }
 
 
@@ -684,7 +726,9 @@ def main() -> int:
     oa.launches = sw.full_width_launches = sw.banded_launches = 0
     t_main = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
-            CallRecorder(sw, "sw_full_width") as main_full_calls:
+            CallRecorder(sw, "sw_full_width") as main_full_calls, \
+            CallRecorder(sw, "_warps_per_item",
+                         keep_results=True) as main_warps:
         contigs, measures, _, _ = test_assembly(
             genome, READ_LENGTH, NUM_READS, ERROR_PROB, K, "smoke", 1,
             path=tmp, rng=random.Random(SEED),
@@ -702,7 +746,8 @@ def main() -> int:
         f"contigs={got['contigs']}, N50={got['n50']}, "
         f"total length={got['total_length']}, overlap kernel launches="
         f"{launches}, SW full-width launches={main_sw_launches}, banded "
-        f"{sw.banded_launches}, peak device memory={main_peak} B")
+        f"{sw.banded_launches}, SW warps a block per launch="
+        f"{main_warps.results}, peak device memory={main_peak} B")
     log(f"phase 4 measures: {json.dumps(measures)}")
     for line in tracer.report().splitlines():
         log(f"phase 4 stage {line}")
@@ -724,7 +769,9 @@ def main() -> int:
     t_long = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             CallRecorder(sw, "sw_full_width") as long_full_calls, \
-            CallRecorder(sw, "sw_banded") as long_banded_calls:
+            CallRecorder(sw, "sw_banded") as long_banded_calls, \
+            CallRecorder(sw, "_warps_per_item",
+                         keep_results=True) as long_warps:
         long_contigs, long_measures, _, _ = test_assembly(
             lg, LONG["read_length"], LONG["num_reads"], LONG["error_prob"],
             LONG["k"], "long", 1, path=tmp,
@@ -740,7 +787,9 @@ def main() -> int:
     log(f"phase 4b long-genome path: {long_s:.2f}s, G={len(lg)}, "
         f"contigs={long_got['contigs']}, N50={long_got['n50']}, launches "
         f"{json.dumps(long_launches)}, banded calls "
-        f"{len(long_banded_calls.calls)}, peak device memory={long_peak} B")
+        f"{len(long_banded_calls.calls)}, SW warps a block per launch (in "
+        f"launch order, full width and banded)={long_warps.results}, peak "
+        f"device memory={long_peak} B")
     log(f"phase 4b measures: {json.dumps(long_measures)}")
     for line in tracer.report().splitlines():
         log(f"phase 4b stage {line}")
@@ -881,6 +930,18 @@ def main() -> int:
             f"C++ engine on the host "
             f"{timing['cpp_ms']:.1f} ms ({graphcore._n_threads()} threads); "
             f"card {card_line}")
+        log(f"phase 5 {name} calls (items, band, most strips an item, "
+            f"strips in all, mean query length): "
+            f"{timing['launches']}")
+        for warps, (w_ms, w_alone, per_launch, same) in \
+                timing["by_warps"].items():
+            log(f"phase 5 {name} at W={warps} warps an item on the same "
+                f"calls: {w_ms:.3f} ms (mean of 3, CUDA events), the "
+                f"kernels alone {w_alone or 'not measured'} ms, "
+                f"{timing['cells'] / (w_alone or w_ms) / 1e6:.1f} GCUPS, "
+                f"per launch {per_launch} ms; outputs "
+                f"{'==' if same else '!='} those at the wrapper's choice; "
+                f"card {card_line}")
         kernels.append({
             "name": name,
             "route": "cuda",

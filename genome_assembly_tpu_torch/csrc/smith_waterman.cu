@@ -35,30 +35,53 @@
 // (__vimax3_s32_relu) and the code select.
 //
 // What the design does about that:
-// - one warp per item, one lane per query row; a strip of 32 rows sweeps
-//   its columns as an anti-diagonal wavefront, lane k at column t - k + 1
-//   at step t, so every cell's three inputs are in registers: its own last
-//   value (left), lane k-1's last value by one shuffle (up), and the up
-//   value of the step before (diag). The DP values never touch memory;
+// - one lane per query row; a strip of 32 rows sweeps its columns as an
+//   anti-diagonal wavefront, lane k at column t - k + 1 at step t, so every
+//   cell's three inputs are in registers: its own last value (left), lane
+//   k-1's last value by one shuffle (up), and the up value of the step
+//   before (diag). The DP values never touch memory;
 // - steps run in unrolled blocks of 16, and each block's loads are issued
 //   one block ahead: the 16 genome codes a lane will face (five aligned
 //   words and four funnel shifts, from a copy of the genome the wrapper
 //   pads by GENOME_PAD codes on each side) and lane 0's 16 values of the
 //   row above (four 16-byte loads). A cell then costs about 25
 //   instructions, one of them the shuffle, and no load waits;
-// - strips follow each other down the query; lane 31 stores the strip's
-//   last row into a ping-pong row buffer in device memory for lane 0 of
-//   the next strip;
+// - one block of W warps (W = 1, 2, 4 or 8, one instantiation each, the
+//   wrapper's choice per launch) aligns one item: warp v runs the item's
+//   strips v, v + W, v + 2 W, ..., so a contig of S strips takes about
+//   ceil(S / W) strip sweeps instead of S. Lane 31 of strip s stores the
+//   strip's last row into a row buffer in device memory (two per item,
+//   strip s writes buffer (s + 1) & 1 and reads buffer s & 1), and lane 0
+//   of strip s + 1 reads it a block ahead of use;
+// - the wait: after each block, lane 31 fences and publishes its warp's
+//   progress, strip * steps + steps done, to shared memory (monotone across
+//   the warp's strips). Before lane 0 of strip s + 1 issues the load of
+//   the row-buffer indices tb + 1 .. tb + 16, it spins until strip s has
+//   done the steps that store them: lane 31 stores index c at its step
+//   c + kStoreLag (30 full width, 62 banded), so through step
+//   tb + 16 + kStoreLag. At W = 1 the strips run in order on one warp and
+//   there is no wait;
+// - why two row buffers suffice: strip s + 2 overwrites the buffer that
+//   strip s + 1 reads, but strip s + 2 waits on strip s + 1. When it
+//   stores index c (at its step c + kStoreLag), strip s + 1 has done at
+//   least c + 78 steps (c + 126 banded), and lane 0 used index c at step
+//   c - 1, so no index is overwritten before it is read; every later strip
+//   that writes the buffer waits on a chain through s + 1. The CPU
+//   emulation (tests/test_torch_smith_waterman.py) runs the real two
+//   buffers under the interleavings the wait allows;
 // - traceback codes are 2 bits, packed 16 steps to a word per lane and
 //   written as one coalesced 128-byte store per block (0.25 byte per
 //   cell, scratch the wrapper sizes per launch);
 // - each lane keeps the first strict maximum of its row; a strip reduces
-//   them (highest score, then lowest row), so the row-major first maximum
-//   comes out exact;
-// - after the last strip lane 0 walks the codes and writes the op stream;
-// - items are taken longest first (the wrapper orders them), four warps
-//   to a block. The two kernels are one template: only the mapping from
-//   step to column and the edges of the valid cells differ.
+//   them (highest score, then lowest row), each warp folds its strips in
+//   order with strict >, and the block folds its warps by highest score,
+//   then lowest row (the warps' strips interleave, so never by warp), so
+//   the row-major first maximum comes out exact;
+// - after a barrier lane 0 of warp 0 walks the codes (all warps' stores
+//   are visible after it) and writes the op stream;
+// - items are taken longest first (the wrapper orders them). The two
+//   kernels are one template: only the mapping from step to column and the
+//   edges of the valid cells differ.
 
 #include <cstdint>
 
@@ -67,8 +90,9 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+// Nanoseconds a waiting warp sleeps between polls of its neighbour's
+// progress (a 16-step block takes about 1,600 ns under load)
+constexpr unsigned kSpinSleepNs = 100;
 constexpr int kBlock = 16;  // steps per unrolled block = codes per word
 // The row buffers keep the value of column (or band slot) x at x + kPad, so
 // that lane 0's 16 values of a block start on a 16-byte boundary.
@@ -138,10 +162,41 @@ __device__ __forceinline__ uint32_t tb_code(int h, int diag, int up) {
   return h > 0 ? c : 0u;
 }
 
-// Steps of a strip: its lanes start one (full width) or two (banded)
-// steps after the lane before.
+// Lane 31's lag behind lane 0, in steps: lanes start one (full width) or
+// two (banded) steps after the lane before.
+__host__ __device__ constexpr int last_lane_shift(bool banded) {
+  return banded ? 62 : 31;
+}
+
+// Lane 31 stores its value at x (column - 1, or band slot) into the row
+// buffer at index x + store_offset: by column (full width) or slot.
+__host__ __device__ constexpr int store_offset(bool banded) {
+  return banded ? 0 : 1;
+}
+
+// Steps after which lane 31 has stored row-buffer index c: at step c + lag.
+__host__ __device__ constexpr int store_lag(bool banded) {
+  return last_lane_shift(banded) - store_offset(banded);
+}
+static_assert(store_lag(false) == 30 && store_lag(true) == 62,
+              "lane 31 stores index c at step c + 30 (full), c + 62 (banded)");
+
 __device__ __forceinline__ int strip_steps(bool banded, int width) {
-  return banded ? width + 62 : width + 31;
+  return width + last_lane_shift(banded);
+}
+
+// Lane 0 of the calling warp spins until *progress reaches target, then
+// the whole warp goes on (acquire: the fence orders the row-buffer loads
+// that follow after the flag's read). It sleeps between polls, so that a
+// waiting warp does not take issue slots from the integer pipe the other
+// warps of its SM are bound by.
+__device__ __forceinline__ void wait_progress(
+    const volatile long long* progress, long long target) {
+  if ((threadIdx.x & 31) == 0) {
+    while (*progress < target) __nanosleep(kSpinSleepNs);
+    __threadfence_block();
+  }
+  __syncwarp();
 }
 
 __device__ __forceinline__ uint32_t read_code(const uint32_t* codes, int n16,
@@ -153,28 +208,31 @@ __device__ __forceinline__ uint32_t read_code(const uint32_t* codes, int n16,
   return (word >> (2 * (step & 15))) & 3u;
 }
 
-// One warp aligns one item. Lane k of strip s owns query row
-// i = 32 s + 1 + k and at step t computes
+// One block of kW warps aligns one item; warp v runs strips v, v + kW, ...
+// Lane k of strip s owns query row i = 32 s + 1 + k and at step t computes
 //   full width: column j = t - k + 1 of the window (1 <= j <= w);
 //   banded:     band slot t - 2 k, column jlo(i) + slot with
 //               jlo(i) = d0 - band + i (slots 0 .. 2 band, 1 <= j <= m).
 // In both, lane k - 1 was at the same column one step earlier (up) and at
 // the column before two steps earlier (diag, kept from the last step).
-template <bool kBanded>
-__global__ void __launch_bounds__(kThreads)
+template <bool kBanded, int kW>
+__global__ void __launch_bounds__(32 * kW)
 sw_kernel(const int8_t* __restrict__ q, long long q_stride,
           const int32_t* __restrict__ q_len,
           const int8_t* __restrict__ genome, int m,
           const int32_t* __restrict__ per_item, int band,
           const int32_t* __restrict__ order,
-          const long long* __restrict__ off, int n_items,
+          const long long* __restrict__ off,
           int32_t* __restrict__ scratch, int match, int mismatch, int indel,
           long long ops_stride, int32_t* __restrict__ out_best,
           int32_t* __restrict__ out_bi, int32_t* __restrict__ out_bj,
           int32_t* __restrict__ out_start, uint8_t* __restrict__ ops) {
+  // each warp's progress: strip * steps + steps done (kW > 1 only)
+  __shared__ long long progress[kW];
+  __shared__ int fold_best[kW], fold_bi[kW], fold_at[kW];
   const int lane = threadIdx.x & 31;
-  const int pos = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (pos >= n_items) return;  // the whole warp leaves together
+  const int warp = threadIdx.x >> 5;
+  const int pos = blockIdx.x;
   const int item = order[pos];
   const int n = q_len[item];
   // full width: the window is the suffix g[m - w:]; banded: the genome
@@ -190,13 +248,27 @@ sw_kernel(const int8_t* __restrict__ q, long long q_stride,
   uint32_t* codes = reinterpret_cast<uint32_t*>(scratch + off[pos]);
   int32_t* hbuf0 = scratch + off[pos] + code_words;
   int32_t* hbuf1 = hbuf0 + hstride;
+  volatile long long* prog = progress;
+  // the warp whose strips come right before this warp's
+  const volatile long long* prev = progress + (warp + kW - 1) % kW;
+  if (kW > 1) {
+    if (threadIdx.x < kW) progress[threadIdx.x] = 0;
+    __syncthreads();
+  }
   int best = 0, bi = 0, bat = 0;  // bat: best column (full) or slot
 
   if (n > 0 && w > 0) {
     const int8_t* qp = q + static_cast<long long>(item) * q_stride;
-    for (int s = 0; s < strips; ++s) {
+    for (int s = warp; s < strips; s += kW) {
       const int32_t* hin = (s & 1) ? hbuf1 : hbuf0;  // row 32 s
       int32_t* hout = (s & 1) ? hbuf0 : hbuf1;       // row 32 s + 32
+      // strip s - 1 has stored the row-buffer indices up to tb + 16 once
+      // it has done `done_for(tb)` steps
+      const long long before = static_cast<long long>(s - 1) * steps;
+      auto done_for = [&](int tb) {
+        return before + min(steps, tb + kBlock + store_lag(kBanded) + 1);
+      };
+      if (kW > 1 && s > 0) wait_progress(prev, done_for(0));
       const int i = 32 * s + 1 + lane;
       const bool row_ok = i <= n;
       // codes compare as bytes (-1: rows past the query match nothing)
@@ -226,6 +298,7 @@ sw_kernel(const int8_t* __restrict__ q, long long q_stride,
         const RefBlock rb = next_ref;
         const int xb = tb - shift;  // this lane's x at step tb
         if (tb + kBlock < steps) {  // the next block's loads, in flight now
+          if (kW > 1 && s > 0) wait_progress(prev, done_for(tb + kBlock));
           next_above = load_above(hin, tb + kBlock, s == 0);
           next_ref = load_ref(ref, xb + kBlock + ref0, lo_p, hi_p);
         }
@@ -250,10 +323,15 @@ sw_kernel(const int8_t* __restrict__ q, long long q_stride,
           h = ok ? hn : 0;  // outside the window, band or genome: 0
           // lane 31 hands its row to the next strip, by index x + 1
           // (full) or slot x (banded); past the row's end it stores 0
-          if (lane == 31 && x >= (kBanded ? 0 : -1))
-            hout[x + (kBanded ? 0 : 1) + kPad] = h;
+          if (lane == 31 && x >= -store_offset(kBanded))
+            hout[x + store_offset(kBanded) + kPad] = h;
         }
         crow[(tb / kBlock) * 32] = cw;
+        if (kW > 1 && lane == 31) {  // publish: this block's stores are done
+          __threadfence_block();
+          prog[warp] = static_cast<long long>(s) * steps +
+                       min(steps, tb + kBlock);
+        }
       }
       const int smax = __reduce_max_sync(kFullMask, lane_best);
       if (smax > best) {  // the first strict maximum in row-major order
@@ -267,7 +345,27 @@ sw_kernel(const int8_t* __restrict__ q, long long q_stride,
     }
   }
 
-  if (lane != 0) return;
+  if (kW > 1) {
+    // the block's first maximum: highest score, then lowest row (every
+    // warp's strips interleave with the others', so not by warp)
+    if (lane == 0) {
+      fold_best[warp] = best;
+      fold_bi[warp] = bi;
+      fold_at[warp] = bat;
+    }
+    __syncthreads();  // also makes every warp's codes visible to the walk
+    if (threadIdx.x == 0) {
+      for (int v = 1; v < kW; ++v) {
+        if (fold_best[v] > best || (fold_best[v] == best && fold_bi[v] < bi)) {
+          best = fold_best[v];
+          bi = fold_bi[v];
+          bat = fold_at[v];
+        }
+      }
+    }
+  }
+
+  if (threadIdx.x != 0) return;
   uint8_t* op = ops + static_cast<long long>(item) * ops_stride;
   long long n_ops = 0;
   if (!kBanded) {
@@ -306,26 +404,53 @@ sw_kernel(const int8_t* __restrict__ q, long long q_stride,
   }
 }
 
+template <bool kBanded, int kW>
+cudaError_t launch_with(unsigned blocks, cudaStream_t stream, const void* q,
+                        long long q_stride, const void* q_len,
+                        const void* genome, int m, const void* per_item,
+                        int band, const void* order, const void* off,
+                        void* scratch, int match, int mismatch, int indel,
+                        long long ops_stride, void* out_best, void* out_bi,
+                        void* out_bj, void* out_start, void* ops) {
+  sw_kernel<kBanded, kW><<<blocks, 32 * kW, 0, stream>>>(
+      static_cast<const int8_t*>(q), q_stride,
+      static_cast<const int32_t*>(q_len), static_cast<const int8_t*>(genome),
+      m, static_cast<const int32_t*>(per_item), band,
+      static_cast<const int32_t*>(order), static_cast<const long long*>(off),
+      static_cast<int32_t*>(scratch), match, mismatch, indel, ops_stride,
+      static_cast<int32_t*>(out_best), static_cast<int32_t*>(out_bi),
+      static_cast<int32_t*>(out_bj), static_cast<int32_t*>(out_start),
+      static_cast<uint8_t*>(ops));
+  return cudaGetLastError();
+}
+
 template <bool kBanded>
 int launch(const void* q, long long q_stride, const void* q_len,
            const void* genome, int m, const void* per_item, int band,
            const void* order, const void* off, int n_items, void* scratch,
            int match, int mismatch, int indel, long long ops_stride,
            void* out_best, void* out_bi, void* out_bj, void* out_start,
-           void* ops, void* stream, int device) {
+           void* ops, void* stream, int device, int warps) {
+  if (warps != 1 && warps != 2 && warps != 4 && warps != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n_items + kWarps - 1) / kWarps);
-  sw_kernel<kBanded><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), q_stride,
-      static_cast<const int32_t*>(q_len), static_cast<const int8_t*>(genome),
-      m, static_cast<const int32_t*>(per_item), band,
-      static_cast<const int32_t*>(order), static_cast<const long long*>(off),
-      n_items, static_cast<int32_t*>(scratch), match, mismatch, indel,
-      ops_stride, static_cast<int32_t*>(out_best),
-      static_cast<int32_t*>(out_bi), static_cast<int32_t*>(out_bj),
-      static_cast<int32_t*>(out_start), static_cast<uint8_t*>(ops));
-  return static_cast<int>(cudaGetLastError());
+  if (n_items <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>(n_items);  // one per item
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SW_LAUNCH(W)                                                        \
+  launch_with<kBanded, W>(blocks, st, q, q_stride, q_len, genome, m,        \
+                          per_item, band, order, off, scratch, match,       \
+                          mismatch, indel, ops_stride, out_best, out_bi,    \
+                          out_bj, out_start, ops)
+  switch (warps) {
+    case 1: err = SW_LAUNCH(1); break;
+    case 2: err = SW_LAUNCH(2); break;
+    case 4: err = SW_LAUNCH(4); break;
+    default: err = SW_LAUNCH(8); break;
+  }
+#undef SW_LAUNCH
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -333,7 +458,9 @@ int launch(const void* q, long long q_stride, const void* q_len,
 extern "C" {
 
 // Each launches one kernel on `stream` (a cudaStream_t) of `device` without
-// synchronising and returns a cudaError_t as an int (0 = launched). The
+// synchronising, with `warps` (1, 2, 4 or 8; any other value returns
+// cudaErrorInvalidValue) warps to an item, and returns a cudaError_t as an
+// int (0 = launched). The
 // items are order[0 .. n_items); item order[p] owns the int32 scratch at
 // scratch + off[p] (codes, then two row buffers; sizes in
 // ops/smith_waterman.py). `genome` points at the first of m codes with
@@ -346,11 +473,11 @@ int sw_full_launch(const void* q, long long q_stride, const void* q_len,
                    void* scratch, int match, int mismatch, int indel,
                    long long ops_stride, void* out_best, void* out_bi,
                    void* out_bj, void* out_start, void* ops, void* stream,
-                   int device) {
+                   int device, int warps) {
   return launch<false>(q, q_stride, q_len, genome, m, w_len, 0, order, off,
                        n_items, scratch, match, mismatch, indel, ops_stride,
                        out_best, out_bi, out_bj, out_start, ops, stream,
-                       device);
+                       device, warps);
 }
 
 int sw_banded_launch(const void* q, long long q_stride, const void* q_len,
@@ -359,11 +486,11 @@ int sw_banded_launch(const void* q, long long q_stride, const void* q_len,
                      void* scratch, int match, int mismatch, int indel,
                      long long ops_stride, void* out_best, void* out_bi,
                      void* out_bj, void* out_start, void* ops, void* stream,
-                     int device) {
+                     int device, int warps) {
   return launch<true>(q, q_stride, q_len, genome, m, d0, band, order, off,
                       n_items, scratch, match, mismatch, indel, ops_stride,
                       out_best, out_bi, out_bj, out_start, ops, stream,
-                      device);
+                      device, warps);
 }
 
 }  // extern "C"

@@ -60,6 +60,13 @@ _INT32_GUARD = 2**30
 # word loads around a window's ends stay in bounds (csrc kGenomePad).
 GENOME_PAD = 64
 
+# Warps a block gives one item's strips (csrc kW): the instantiations the
+# launch entries accept.
+WARPS_PER_ITEM = (1, 2, 4, 8)
+# Warps of the kernels resident on one SM: 65,536 registers over 96 a
+# thread hold 21 warps, 20 in blocks of 4.
+RESIDENT_WARPS_PER_SM = 20
+
 # Kernel launches since the last reset; set to 0 to start counting.
 full_width_launches = 0
 banded_launches = 0
@@ -85,7 +92,8 @@ def load_kernel():
                 ll,              # ops_stride
                 vp, vp, vp, vp,  # best, best_i, best_j, start_j out
                 vp,              # ops out
-                vp, i]           # stream, device index
+                vp, i,           # stream, device index
+                i]               # warps to an item (1, 2, 4 or 8)
         lib.sw_full_launch.argtypes = head + tail
         lib.sw_banded_launch.argtypes = head + [i] + tail    # + band
         lib.sw_full_launch.restype = i
@@ -392,11 +400,33 @@ def _launch_chunks(words: np.ndarray, work: np.ndarray, budget_words: int):
     return chunks
 
 
+def _warps_per_item(strips: np.ndarray, sms: int) -> int:
+    """Warps of the block that aligns one item of a launch, from the
+    launch's strip counts and the card's SM count: the larger of
+    - the most warps an item that still let every item's block be resident
+      at once (`RESIDENT_WARPS_PER_SM` on each SM): more blocks than the
+      card holds run in waves, and a wave costs more than a longer chain;
+    - the fewest warps that bring the longest item's chain of strips down
+      to the larger of the mean item's strips and the strips each resident
+      warp takes on in the launch: below that the launch waits on its
+      longest item.
+    """
+    busy = strips[strips > 0]
+    if len(busy) == 0:
+        return 1
+    resident = RESIDENT_WARPS_PER_SM * sms
+    fill = [w for w in WARPS_PER_ITEM if len(busy) * w <= resident]
+    load = max(busy.mean(), busy.sum() / resident)
+    tail = [w for w in WARPS_PER_ITEM if -(-int(busy.max()) // w) <= load]
+    return max(fill[-1] if fill else 1, tail[0] if tail else 8)
+
+
 def _run_kernel(name, queries, q_len, genome, per_item, band, words, work,
-                match_score, mismatch, indel, ops_stride, dev):
+                strips, match_score, mismatch, indel, ops_stride, dev):
     """Launch the library's C entry point `name` over every item, in
-    launches whose scratch fits the budget; returns the outputs and the
-    number of launches."""
+    launches whose scratch fits the budget, each with the warps a block
+    `_warps_per_item` gives its items; returns the outputs and the number
+    of launches."""
     B = queries.shape[0]
     outs = [torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(4)]
     ops = torch.zeros((B, ops_stride), dtype=torch.uint8, device=dev)
@@ -412,6 +442,7 @@ def _run_kernel(name, queries, q_len, genome, per_item, band, words, work,
     padded[GENOME_PAD:GENOME_PAD + genome.shape[0]] = genome
     stream = torch.cuda.current_stream(dev).cuda_stream
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
     extra = () if band is None else (band,)
     for order, off in chunks:
         order_d = torch.from_numpy(order.astype(np.int32)).to(dev)
@@ -422,7 +453,7 @@ def _run_kernel(name, queries, q_len, genome, per_item, band, words, work,
                  *extra, order_d.data_ptr(), off_d.data_ptr(), len(order),
                  scratch.data_ptr(), match_score, mismatch, indel,
                  ops_stride, *(o.data_ptr() for o in outs), ops.data_ptr(),
-                 stream, index)
+                 stream, index, _warps_per_item(strips[order], sms))
         if err != 0:
             raise RuntimeError(f"smith_waterman kernel launch failed: "
                                f"cudaError {err}")
@@ -466,7 +497,7 @@ def sw_full_width(queries: torch.Tensor, q_len: torch.Tensor,
     out, n_launches = _run_kernel(
         "sw_full_launch",
         queries, q_len, genome, w_len, None, words, strips * (w + 31),
-        match_score, mismatch, indel, queries.shape[1] + m, dev)
+        strips, match_score, mismatch, indel, queries.shape[1] + m, dev)
     full_width_launches += n_launches
     return out
 
@@ -525,7 +556,7 @@ def sw_banded(queries: torch.Tensor, q_len: torch.Tensor,
     words = np.where(strips > 0, _scratch_words(strips, wb + 62), 0)
     out, n_launches = _run_kernel(
         "sw_banded_launch",
-        queries, q_len, genome, d0, band, words, strips,
+        queries, q_len, genome, d0, band, words, strips, strips,
         match_score, mismatch, indel, 2 * queries.shape[1] + 2 * band + 1,
         dev)
     banded_launches += n_launches

@@ -228,9 +228,17 @@ SW_FULL_CASES = ["ragged", "ties", "N in query and window",
                  "tail windows", "penalties 5/-3/-2"]
 
 
+def _force_warps(monkeypatch, warps):
+    """Make the wrappers launch every item with `warps` warps a block."""
+    monkeypatch.setattr(sw, "_warps_per_item", lambda strips, sms: warps)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("warps", sw.WARPS_PER_ITEM)
 @pytest.mark.parametrize("case", SW_FULL_CASES)
-def test_sw_full_width_kernel_equals_plain_version(case, cuda_device):
+def test_sw_full_width_kernel_equals_plain_version(case, warps, cuda_device,
+                                                   monkeypatch):
+    _force_warps(monkeypatch, warps)
     q, ql, genome, wl, pen = _sw_full_case(case)
     args = _to(cuda_device, q, ql, genome, wl)
     before = sw.full_width_launches
@@ -243,9 +251,12 @@ def test_sw_full_width_kernel_equals_plain_version(case, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("warps", sw.WARPS_PER_ITEM)
 @pytest.mark.parametrize("band", [0, 1, 64, 2048])
 @pytest.mark.parametrize("pen", [(10, -1, -1), (5, -3, -2)])
-def test_sw_banded_kernel_equals_plain_version(band, pen, cuda_device):
+def test_sw_banded_kernel_equals_plain_version(band, pen, warps, cuda_device,
+                                               monkeypatch):
+    _force_warps(monkeypatch, warps)
     rs = np.random.RandomState(band + 7)
     genome = rs.randint(0, 4, size=20000).astype(np.int8)
     q, ql = _queries(rs, genome, rs.randint(0, 400, size=40))
@@ -260,6 +271,50 @@ def test_sw_banded_kernel_equals_plain_version(band, pen, cuda_device):
     want = sw.sw_banded_plain(*args, band, *pen)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", [1, 8])
+def test_sw_kernels_on_a_query_of_40_strips(warps, cuda_device, monkeypatch):
+    # 1,280 bases against a 6 kb genome: at W = 8 each warp runs five
+    # strips, so its progress counter carries over from strip to strip
+    _force_warps(monkeypatch, warps)
+    rs = np.random.RandomState(40)
+    genome = rs.randint(0, 4, size=6000).astype(np.int8)
+    q, ql = _queries(rs, genome, [1280, 1280, 1279, 700, 33, 0])
+    q[1, :1280] = genome[2000:3280]
+    q[1, [100, 640, 1000]] = 4
+    full = _to(cuda_device, q, ql, genome, np.full(6, 6000, np.int32))
+    want = sw.sw_full_width_plain(*full)
+    got = sw.sw_full_width(*full)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    d0 = _to(cuda_device, np.array([2000, 1990, 0, 5000, -40, 7],
+                                   np.int32))[0]
+    for band in (16, 300):
+        want = sw.sw_banded_plain(*full[:3], d0, band)
+        got = sw.sw_banded(*full[:3], d0, band)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", [0, 3, 16])
+def test_sw_launch_refuses_other_warp_counts(warps, cuda_device,
+                                             monkeypatch):
+    lib = sw.load_kernel()
+    for fn, extra in ((lib.sw_full_launch, ()), (lib.sw_banded_launch, (8,))):
+        # refused before anything is read: null pointers, no items
+        assert fn(None, 0, None, None, 0, None, *extra, None, None, 0, None,
+                  10, -1, -1, 1, None, None, None, None, None, None, 0,
+                  warps) != 0
+    _force_warps(monkeypatch, warps)
+    q, ql, genome, wl, pen = _sw_full_case("ragged")
+    args = _to(cuda_device, q, ql, genome, wl)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sw.sw_full_width(*args, *pen)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sw.sw_banded(*args, 8, *pen)
 
 
 @pytest.mark.gpu
