@@ -7,9 +7,10 @@ Phases, each printed with the elapsed seconds as it ends:
 
 1. device: a CUDA card must be present (exit 1 otherwise); prints the
    card's name and power limit as nvidia-smi gives them;
-2. build: compiles the all-pairs overlap kernel and the two Smith-Waterman
-   kernels (nvcc, sm_90a, one call per source) and the C++ graph engine
-   (g++) from the sources in this checkout, all in parallel;
+2. build: compiles the all-pairs and the pair-list overlap kernels and the
+   two Smith-Waterman kernels (nvcc, sm_90a, one call per source) and the
+   C++ graph engine (g++) from the sources in this checkout, all in
+   parallel;
 3. each kernel against its plain PyTorch version on the card, exact
    equality on every case. The overlap kernel: score and end (ragged,
    rectangular, non-default penalties, L=127, reads of length 0 and 1, a
@@ -17,6 +18,9 @@ Phases, each printed with the elapsed seconds as it ends:
    inside reads, tiles cut ragged, 1x1, lengths <= 8, L=1023, reads
    against themselves with one base changed, rows at an odd address, and
    penalties whose factor the kernel cannot fold into its one-hot bytes).
+   The pair-list overlap kernel: score and end (ragged lengths 0, 1, L-1
+   and L, W = 150 and 1,023, internal PAD, penalties 5/-4, ia == ib and
+   repeated pairs, inputs at an odd address, the main path's reads).
    The Smith-Waterman kernels: score, best_i, best_j, start_j and the op
    stream (ragged batches, ties, N inside query and window, q_len 0 and
    window length 0, queries longer than their window, tail windows,
@@ -33,6 +37,12 @@ Phases, each printed with the elapsed seconds as it ends:
    N=15000, l=150, p=0.005, k=15 (scripts/long_genome_demo.py's exact
    k=15 row), on the card; both SW kernels must have been launched and the
    result must equal the JAX package's (LONG_EXPECTED);
+4c. the long-genome path at its recorded size (LONG_GENOME.json: N=90000,
+   nothing cut), two rows: "exact, k=15" and "fast, k=5" (the greedy
+   layout with its consensus polish); both take the sparse route (the
+   pair-list kernel) and the k-mer join on the card; the pair kernel, the
+   join and the banded SW kernel must have run, and each row must equal
+   the JAX package's (LONG90_EXPECTED);
 5. each kernel's time at its path's own inputs with CUDA events, beside
    its bound and the plain version's time; for the SW kernels also DP
    cells, GCUPS, their code traffic and the C++ engine's time on the same
@@ -42,7 +52,11 @@ Phases, each printed with the elapsed seconds as it ends:
    entries take (1, 2, 4 and 8 warps an item; CUDA events and its time
    alone in a profiler trace), its outputs equal to those at the
    wrapper's choice. Phases 4 and 4b print the warps a block the wrapper
-   gave each launch.
+   gave each launch. The pair-list kernel on phase 4c's calls: every pair
+   held against the plain version, its time (CUDA events and alone in a
+   profiler trace), bound, the plain version's and the C++ engine's time,
+   and the device join's time; then on PhiX's candidate pairs beside the
+   all-pairs kernel, whose gathered scores and ends it must equal.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -118,8 +132,46 @@ LONG_EXPECTED = {
     },
 }
 
+# The same path at the size LONG_GENOME.json records (N=90000): two of its
+# rows. U = 76,033 unique reads; 96,906 candidate pairs at k=15 and
+# 5,772,298 at k=5, both past the dense route's limits (the sparse route).
+LONG90 = {**LONG, "num_reads": 90_000}
+LONG90_ROWS = (("exact, k=15", {"k": 15, "exact_parity": True}),
+               ("fast, k=5", {"k": 5, "exact_parity": False}))
+LONG90_EXPECTED = {
+    "exact, k=15": {
+        "contigs": 37183,
+        "n50": 150,
+        "total_length": 6036252,
+        "sha256": "6fc9fdc98b619c02706c0c9a3157d4823a1f4ce78b58939fdf18a5fed4761b04",
+        "measures": {
+            "Number of Contigs": 37183,
+            "Genome Coverage": 1.0,
+            "N50": 150,
+            "Mismatch Rate Aligned Regions": 0.99854,
+            "Mismatch Rate Genome Level": 0.99854,
+        },
+    },
+    "fast, k=5": {
+        "contigs": 70897,
+        "n50": 150,
+        "total_length": 10905529,
+        "sha256": "29e8a04fdfc3da822d52521a26676cacf6397e1817dff08944f7c20468ea787c",
+        "measures": {
+            "Number of Contigs": 70897,
+            "Genome Coverage": 1.0,
+            "N50": 150,
+            "Mismatch Rate Aligned Regions": 0.79492,
+            "Mismatch Rate Genome Level": 0.79492,
+        },
+    },
+}
+
 KERNEL_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_allpairs.cu"
 KERNEL_REPLACES = "genome_assembly_tpu/ops/overlap_allpairs.py:312"
+PAIRS_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_pairs.cu"
+# an XLA program of the JAX package (not a Pallas kernel)
+PAIRS_REPLACES = "genome_assembly_tpu/ops/overlap.py:70"
 SW_SOURCE = "genome_assembly_tpu_torch/csrc/smith_waterman.cu"
 # XLA programs of the JAX package (not Pallas kernels)
 SW_FULL_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:155"
@@ -190,6 +242,17 @@ def comparisons(a_len, b_len, L: int) -> int:
     ca = np.bincount(np.asarray(a_len), minlength=L + 1).astype(np.int64)
     cb = np.bincount(np.asarray(b_len), minlength=L + 1).astype(np.int64)
     return int(ca @ f @ cb)
+
+
+def pair_comparisons(a_len, b_len, L: int) -> int:
+    """sum over listed pairs (a_len[p], b_len[p]) of
+    sum_{j=1}^{b_len[p]} min(a_len[p], j)."""
+    import numpy as np
+
+    n = np.arange(L + 1, dtype=np.int64)[:, None]
+    m = np.arange(L + 1, dtype=np.int64)[None, :]
+    f = np.where(m <= n, m * (m + 1) // 2, n * (n + 1) // 2 + n * (m - n))
+    return int(f[np.asarray(a_len), np.asarray(b_len)].sum())
 
 
 def random_batch(rs, n: int, L: int, lengths=None):
@@ -323,6 +386,138 @@ def sw_banded_cases(rs, genome_codes):
         cases.append((f"banded, band {band}, penalties {pen}", q, lens.astype(
             np.int32), genome_codes, d0, band, pen))
     return cases
+
+
+def pair_cases(rs, main_codes, main_lens, dev):
+    """(name, codes, lengths, ia, ib, match, mismatch) for phase 3 of the
+    pair-list kernel; arrays are numpy, or device tensors where the case
+    places them."""
+    import numpy as np
+
+    def pairs(u, n):
+        return (rs.randint(0, u, n).astype(np.int32),
+                rs.randint(0, u, n).astype(np.int32))
+
+    cases = []
+    c, cl = random_batch(rs, 400, 150, rs.choice(
+        np.r_[[0, 1, 149, 150] * 20, np.arange(151)], size=400))
+    cases.append(("ragged, lengths 0/1/L-1/L, W=150", c, cl,
+                  *pairs(400, 50_000), 10, -1))
+    c, cl = random_batch(rs, 64, 1023, rs.choice(
+        np.r_[[0, 1, 1022, 1023] * 4, rs.randint(0, 1024, 48)], size=64))
+    cases.append(("ragged, W=1023", c, cl, *pairs(64, 3000), 10, -1))
+    c, cl = random_batch(rs, 300, 150)
+    with_n(rs, c, cl)
+    cases.append(("internal PAD", c, cl, *pairs(300, 30_000), 10, -1))
+    c, cl = random_batch(rs, 200, 60)
+    with_n(rs, c, cl)
+    cases.append(("penalties 5/-4, W=60, internal PAD", c, cl,
+                  *pairs(200, 20_000), 5, -4))
+    c, cl = random_batch(rs, 100, 150)
+    ia = np.r_[np.arange(100), [7] * 500, rs.randint(0, 100, 500)]
+    ib = np.r_[np.arange(100), [9] * 500, [3] * 500]
+    cases.append(("ia == ib and repeated pairs", c, cl, ia.astype(np.int32),
+                  ib.astype(np.int32), 10, -1))
+    c, cl = random_batch(rs, 150, 150)
+    cases.append(("inputs at an odd address", at_odd_address(c, dev), cl,
+                  *pairs(150, 10_000), 10, -1))
+    cases.append(("main path reads, 100,000 random pairs", main_codes,
+                  main_lens, *pairs(len(main_codes), 100_000), 10, -1))
+    return cases
+
+
+def time_pairs(calls, reps: int) -> dict:
+    """Time the pair-list kernel on recorded calls and hold its outputs on
+    every pair against the plain version's. CUDA events over `reps` passes
+    of the wrapper, of the launch entry alone and of the wrapper's checks
+    alone, and the kernel alone in a profiler trace of `reps` more; the plain version's and the C++ engine's time on
+    the same pairs; the comparisons and bytes of the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_assembly_tpu_torch.native import graphcore
+    from genome_assembly_tpu_torch.ops import overlap as op
+
+    outs = [op.overlap_scores_pairs(*a, **k) for a, k in calls]   # warm-up
+    lib = op.load_kernel()
+
+    def raw(codes, lengths, ia, ib, match_score=10, mismatch=-1):
+        """The launch entry alone, without the wrapper's checks."""
+        s = torch.empty(ia.numel(), dtype=torch.int32, device=ia.device)
+        e = torch.empty_like(s)
+        err = lib.overlap_pairs_launch(
+            codes.data_ptr(), lengths.data_ptr(), codes.shape[1],
+            ia.data_ptr(), ib.data_ptr(), ia.numel(), match_score, mismatch,
+            s.data_ptr(), e.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, ia.device.index)
+        assert err == 0, err
+
+    def checks(codes, lengths, ia, ib, match_score=10, mismatch=-1):
+        op._check_pairs(codes, lengths, ia, ib, match_score, mismatch)
+
+    def events_ms(fn) -> float:
+        """Mean ms of one pass over the calls, CUDA events over `reps`."""
+        for a, k in calls:
+            fn(*a, **k)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            for a, k in calls:
+                fn(*a, **k)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    ms = events_ms(op.overlap_scores_pairs)
+    raw_ms, checks_ms = events_ms(raw), events_ms(checks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for a, k in calls:
+                op.overlap_scores_pairs(*a, **k)
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages()
+            if "overlap_pairs_kernel" in e.key]
+    alone_us = sum(getattr(e, "device_time_total", 0) for e in mine) / reps
+    # launches the trace saw (reps x calls when it lost none)
+    traced = sum(e.count for e in mine)
+    plain_ms, equal, err = 0.0, True, 0
+    n_cmp = n_bytes = pairs = 0
+    cpp_ms = 0.0
+    for (args, kwargs), (s_k, e_k) in zip(calls, outs):
+        codes, lengths, ia, ib = args
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s_p, e_p = op.overlap_scores_pairs_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t) * 1e3
+        if s_k.numel():
+            err = max(err, int((s_k - s_p).abs().max()),
+                      int((e_k - e_p).abs().max()))
+        equal = equal and torch.equal(s_k, s_p) and torch.equal(e_k, e_p)
+        host = [x.cpu().numpy() for x in args]
+        t = time.perf_counter()
+        graphcore.overlap_nogap_pairs(*host, **kwargs)
+        cpp_ms += (time.perf_counter() - t) * 1e3
+        lens = host[1]
+        n_cmp += pair_comparisons(lens[host[2]], lens[host[3]],
+                                  codes.shape[1])
+        # pairs in and outputs out at 8 B each, the reads and lengths once
+        n_bytes += 16 * ia.numel() + codes.numel() + 4 * lengths.numel()
+        pairs += ia.numel()
+    ops_ms = OPS_PER_COMPARISON * n_cmp / PEAK_INT8_OPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "pairs": pairs, "ms": ms, "raw_ms": raw_ms, "checks_ms": checks_ms,
+        "alone_ms": alone_us / 1e3 if alone_us else None, "traced": traced,
+        "plain_ms": plain_ms, "cpp_ms": cpp_ms, "equal": equal,
+        "max_abs_err": err, "comparisons": n_cmp, "bytes": n_bytes,
+        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
 
 
 def sw_equal(kernel_out, plain_out):
@@ -589,9 +784,14 @@ def main() -> int:
     from genome_assembly_tpu_torch.core.encoding import encode_batch
     from genome_assembly_tpu_torch.experiments.runner import test_assembly
     from genome_assembly_tpu_torch.core.encoding import encode
-    from genome_assembly_tpu_torch.graph.build import dedup_reads
+    from genome_assembly_tpu_torch.graph import candidates
+    from genome_assembly_tpu_torch.graph.build import (
+        candidate_pairs_arrays,
+        dedup_reads,
+    )
     from genome_assembly_tpu_torch.metrics import align_to_ref
     from genome_assembly_tpu_torch.native import graphcore
+    from genome_assembly_tpu_torch.ops import overlap as op
     from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
     from genome_assembly_tpu_torch.ops import smith_waterman as sw
     from genome_assembly_tpu_torch.simulate import (
@@ -604,13 +804,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- phase 2: build --------------------------------------------------
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        futures = [pool.submit(oa.load_kernel), pool.submit(sw.load_kernel),
-                   pool.submit(graphcore.load)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futures = [pool.submit(oa.load_kernel), pool.submit(op.load_kernel),
+                   pool.submit(sw.load_kernel), pool.submit(graphcore.load)]
         for f in futures:
             f.result()
     log(f"phase 2 build: nvcc overlap_allpairs "
-        f"{_build.BUILD_SECONDS['overlap_allpairs']}s, nvcc smith_waterman "
+        f"{_build.BUILD_SECONDS['overlap_allpairs']}s, nvcc overlap_pairs "
+        f"{_build.BUILD_SECONDS['overlap_pairs']}s, nvcc smith_waterman "
         f"{_build.BUILD_SECONDS['smith_waterman']}s, g++ graphcore "
         f"{_build.BUILD_SECONDS['graphcore']}s (None: already built)")
 
@@ -687,8 +888,24 @@ def main() -> int:
         log(f"phase 3 kernel == plain: {name}")
 
     def on_card(*arrays):
-        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return [x if torch.is_tensor(x)
+                else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in arrays]
+
+    pair_err = 0
+    for name, c, cl, ia, ib, ms, mm in pair_cases(rs, main_codes, main_lens,
+                                                   dev):
+        args = on_card(c, cl, ia, ib)
+        s_k, e_k = op.overlap_scores_pairs(*args, ms, mm)
+        s_p, e_p = op.overlap_scores_pairs_plain(*args, ms, mm)
+        torch.cuda.synchronize()
+        err = max(int((s_k - s_p).abs().max()), int((e_k - e_p).abs().max()))
+        pair_err = max(pair_err, err)
+        if not (torch.equal(s_k, s_p) and torch.equal(e_k, e_p)):
+            log(f"phase 3 FAILED: pair kernel != plain on {name} "
+                f"(max abs err {err})")
+            return 1
+        log(f"phase 3 pair kernel == plain: {name} ({len(ia)} pairs)")
 
     sw_err = {"full": 0, "banded": 0}
 
@@ -723,7 +940,8 @@ def main() -> int:
     tracer.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    oa.launches = sw.full_width_launches = sw.banded_launches = 0
+    oa.launches = op.launches = 0
+    sw.full_width_launches = sw.banded_launches = 0
     t_main = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             CallRecorder(sw, "sw_full_width") as main_full_calls, \
@@ -736,6 +954,7 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = oa.launches
+    main_pair_launches = op.launches
     main_sw_launches = sw.full_width_launches
     main_peak = torch.cuda.max_memory_allocated(dev)
     stages = tracer.as_dict()
@@ -745,7 +964,8 @@ def main() -> int:
         f"edges={stages['graph.remove_cycles']['items']}, "
         f"contigs={got['contigs']}, N50={got['n50']}, "
         f"total length={got['total_length']}, overlap kernel launches="
-        f"{launches}, SW full-width launches={main_sw_launches}, banded "
+        f"{launches} (pair-list {main_pair_launches}), SW full-width "
+        f"launches={main_sw_launches}, banded "
         f"{sw.banded_launches}, SW warps a block per launch="
         f"{main_warps.results}, peak device memory={main_peak} B")
     log(f"phase 4 measures: {json.dumps(measures)}")
@@ -765,7 +985,8 @@ def main() -> int:
     tracer.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    oa.launches = sw.full_width_launches = sw.banded_launches = 0
+    oa.launches = op.launches = 0
+    sw.full_width_launches = sw.banded_launches = 0
     t_long = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             CallRecorder(sw, "sw_full_width") as long_full_calls, \
@@ -779,7 +1000,7 @@ def main() -> int:
             np_rng=np.random.RandomState(LONG["np_seed"]), device="cuda")
     torch.cuda.synchronize()
     long_s = time.perf_counter() - t_long
-    long_launches = {"overlap": oa.launches,
+    long_launches = {"overlap": oa.launches, "overlap_pairs": op.launches,
                      "full": sw.full_width_launches,
                      "banded": sw.banded_launches}
     long_peak = torch.cuda.max_memory_allocated(dev)
@@ -803,6 +1024,62 @@ def main() -> int:
             f"  expected {json.dumps(LONG_EXPECTED)}")
         return 1
     log("phase 4b result == JAX package's")
+
+    # ---- phase 4c: the long-genome path at N=90000, two rows -------------
+    pair_calls, join_calls = [], []
+    pair_launches = 0
+    for row, kw in LONG90_ROWS:
+        tracer.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        oa.launches = op.launches = 0
+        sw.full_width_launches = sw.banded_launches = 0
+        t_row = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, \
+                CallRecorder(op, "overlap_scores_pairs") as row_pairs, \
+                CallRecorder(candidates, "candidate_pairs_device") as row_join:
+            row_contigs, row_measures, _, _ = test_assembly(
+                lg, LONG90["read_length"], LONG90["num_reads"],
+                LONG90["error_prob"], kw["k"], "long90", 1, path=tmp,
+                rng=random.Random(LONG90["rng_seed"]),
+                np_rng=np.random.RandomState(LONG90["np_seed"]),
+                device="cuda", exact_parity=kw["exact_parity"])
+        torch.cuda.synchronize()
+        row_s = time.perf_counter() - t_row
+        row_launches = {"overlap_pairs": op.launches,
+                        "overlap_allpairs": oa.launches,
+                        "device join": len(row_join.calls),
+                        "full": sw.full_width_launches,
+                        "banded": sw.banded_launches}
+        row_peak = torch.cuda.max_memory_allocated(dev)
+        row_got = {**contig_summary(row_contigs), "measures": row_measures}
+        stages = tracer.as_dict()
+        unique_count = (len(row_join.calls[0][0][0]) if row_join.calls
+                        else None)
+        log(f"phase 4c {row}: {row_s:.2f}s, G={len(lg)}, "
+            f"N={LONG90['num_reads']}, U={unique_count}, "
+            f"pairs={stages.get('score.pairs', {}).get('items')}, "
+            f"contigs={row_got['contigs']}, N50={row_got['n50']}, launches "
+            f"{json.dumps(row_launches)}, peak device memory={row_peak} B")
+        log(f"phase 4c {row} measures: {json.dumps(row_measures)}")
+        for line in tracer.report().splitlines():
+            log(f"phase 4c {row} stage {line}")
+        if (row_launches["overlap_pairs"] < 1
+                or row_launches["device join"] < 1
+                or row_launches["banded"] < 1):
+            log(f"phase 4c FAILED: {row} did not run the pair kernel, the "
+                f"device join and the banded SW kernel")
+            return 1
+        if row_got != LONG90_EXPECTED[row]:
+            log(f"phase 4c FAILED: {row} differs from the JAX package's:\n"
+                f"  got      {json.dumps(row_got)}\n"
+                f"  expected {json.dumps(LONG90_EXPECTED[row])}")
+            return 1
+        log(f"phase 4c {row} result == JAX package's")
+        pair_launches += row_launches["overlap_pairs"]
+        pair_calls.append((row, row_pairs.calls))
+        join_calls.append((row, row_join.calls))
+        del row_contigs, row_measures
 
     # ---- phase 3 on the paths' own contigs --------------------------------
     _, main_full_window, _ = align_to_ref.split_contigs(
@@ -955,6 +1232,93 @@ def main() -> int:
             "bound_by": timing["bound_by"],
             "library_ms": None,
         })
+    # ---- phase 5: the pair-list kernel at phase 4c's calls ----------------
+    pair_total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+                  "bytes_ms": 0.0}
+    for row, calls in pair_calls:
+        timing = time_pairs(calls, reps=3)
+        pair_err = max(pair_err, timing["max_abs_err"])
+        log(f"phase 5 pair kernel {'==' if timing['equal'] else '!='} plain "
+            f"on every pair of {row}'s {len(calls)} call(s), "
+            f"{timing['pairs']} pairs (max abs err {timing['max_abs_err']})")
+        if not timing["equal"]:
+            return 1
+        log(f"phase 5 overlap_pairs on {row}: {timing['ms']:.3f} ms (mean of "
+            f"3, CUDA events around the wrapper calls; the launch entry "
+            f"alone {timing['raw_ms']:.3f} ms, the wrapper's checks alone "
+            f"{timing['checks_ms']:.3f} ms); the kernel alone "
+            f"(profiler, mean of 3) {timing['alone_ms'] or 'not measured'} "
+            f"ms ({timing['traced']} of {3 * len(calls)} launches in the "
+            f"trace); bound "
+            f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
+            f"({timing['comparisons']} comparisons x {OPS_PER_COMPARISON} "
+            f"int8 ops -> {timing['ops_ms']:.4f} ms; {timing['bytes']} B -> "
+            f"{timing['bytes_ms']:.4f} ms); kernel at "
+            f"{timing['bound_ms'] / timing['ms']:.3f} of its bound; plain "
+            f"version {timing['plain_ms']:.1f} ms (every pair, chunks of "
+            f"{op.PLAIN_CELLS} cells); C++ engine on the host "
+            f"{timing['cpp_ms']:.1f} ms ({graphcore._n_threads()} threads); "
+            f"library call: none; card {card_line}")
+        for key in pair_total:
+            pair_total[key] += timing[key]
+    for row, calls in join_calls:
+        for args, kwargs in calls:
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                candidates.candidate_pairs_device(*args, **kwargs)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            log(f"phase 5 device k-mer join on {row}: U={len(args[0])}, "
+                f"k={args[1]}: {sum(times) / 3:.1f} ms (mean of 3, host "
+                f"clock: encoding on the host, join on the card, pairs back "
+                f"to the host); card {card_line}")
+
+    # the pair kernel on PhiX's candidate pairs, beside the all-pairs kernel
+    ia_x, ib_x = candidate_pairs_arrays(unique, K, device=dev)
+    ia_d = torch.from_numpy(ia_x).to(dev)
+    ib_d = torch.from_numpy(ib_x).to(dev)
+    s_pair, e_pair = op.overlap_scores_pairs(codes, lens, ia_d, ib_d)
+    s_mat, e_mat = oa.overlap_scores_all_pairs(codes, lens)
+    torch.cuda.synchronize()
+    same = (torch.equal(s_pair, s_mat[ia_d.long(), ib_d.long()])
+            and torch.equal(e_pair, e_mat[ia_d.long(), ib_d.long()]))
+    del s_mat, e_mat
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        op.overlap_scores_pairs(codes, lens, ia_d, ib_d)
+    stop.record()
+    torch.cuda.synchronize()
+    phix_pair_ms = start.elapsed_time(stop) / reps
+    phix_cmp = pair_comparisons(main_lens[ia_x], main_lens[ib_x], L)
+    log(f"phase 5 overlap_pairs on PhiX's {len(ia_x)} candidate pairs "
+        f"(U={na}, L={L}): {phix_pair_ms:.3f} ms (mean of {reps}, CUDA "
+        f"events), against the all-pairs kernel's {kernel_ms:.3f} ms for "
+        f"all {na}x{na} pairs; {phix_cmp} comparisons -> "
+        f"{OPS_PER_COMPARISON * phix_cmp / PEAK_INT8_OPS * 1e3:.4f} ms at "
+        f"the int8 peak; scores and ends "
+        f"{'==' if same else '!='} the all-pairs kernel's gathered; card "
+        f"{card_line}")
+    if not same:
+        log("phase 5 FAILED: the pair kernel and the all-pairs kernel "
+            "disagree on PhiX's candidate pairs")
+        return 1
+    kernels.insert(1, {
+        "name": "overlap_pairs",
+        "route": "cuda",
+        "source": PAIRS_SOURCE,
+        "replaces": PAIRS_REPLACES,
+        "launches": pair_launches,
+        "max_abs_err": pair_err,
+        "ms": pair_total["ms"],
+        "plain_ms": pair_total["plain_ms"],
+        "bound_ms": pair_total["bound_ms"],
+        "bound_by": ("operations" if pair_total["ops_ms"]
+                     >= pair_total["bytes_ms"] else "bytes"),
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed; wall {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

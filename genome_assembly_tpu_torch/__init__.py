@@ -10,10 +10,13 @@ Module paths and public names mirror the JAX package:
 
 - ``core``        int8 sequence encoding, config, device dispatch rules
 - ``simulate``    host read sampling + sequencing-error injection
-- ``ops``         the all-pairs overlap kernel (``csrc/overlap_allpairs.cu``)
-                  and its plain PyTorch version
-- ``graph``       overlap-graph construction, cycle removal, layout
-- ``models``      the exact-parity overlap-graph assembly pipeline
+- ``ops``         the hand kernels (``csrc/``: all-pairs and pair-list
+                  overlap scoring, Smith-Waterman) and their plain PyTorch
+                  versions
+- ``graph``       the k-mer join, overlap-graph construction, cycle
+                  removal, layout, the fast greedy layout, consensus
+- ``models``      the overlap-graph assembly pipeline (exact-parity and
+                  fast layouts)
 - ``metrics``     assembly quality measures (N50, coverage, mismatch rates)
 - ``experiments`` ``test_assembly``, one assemble-and-measure run
 - ``native``      the C++ graph engine (ctypes), built at first use

@@ -8,13 +8,15 @@ the metrics pass on the host, and joined k-mers on the device only from
 50,000 unique reads up. A card attached to this process pays microseconds
 for a launch, so those thresholds do not carry over:
 
-- on a CUDA device, pair scoring goes to the all-pairs kernel and the
-  metrics pass to the Smith-Waterman kernels, whatever the problem size;
+- on a CUDA device, pair scoring goes to the all-pairs or the pair-list
+  kernel (``graph/build.py`` picks by density) and the metrics pass to the
+  Smith-Waterman kernels, whatever the problem size;
 - on a CPU device, the JAX package's host rules hold: the C++ scorer and
   the C++ Smith-Waterman engine, as the JAX package uses on a CPU backend.
 
-The device k-mer join (ROADMAP A7) is not ported yet, so it runs on the
-host on every device.
+The k-mer join needs no rule: it is one set of torch ops
+(``graph/candidates.py``) that runs on whichever device the caller
+passes.
 
 Entry points take ``device="cuda"`` by default. ``resolve_device`` raises
 when the caller asks for a card and none is present: a run never moves to
@@ -43,7 +45,7 @@ def resolve_device(device) -> torch.device:
 
 
 def use_host_pair_scoring(device: torch.device) -> bool:
-    """C++ pair scorer on a CPU device; the all-pairs kernel on a CUDA
+    """C++ pair scorer on a CPU device; the overlap kernels on a CUDA
     device for every pair count."""
     return device.type != "cuda"
 

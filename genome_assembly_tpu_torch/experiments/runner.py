@@ -36,9 +36,12 @@ def test_assembly(genome: str, l: int, N: int, error_prob: float, k: int,
     to `plot_hooks`. `banded` chooses the metrics pass's alignment route
     (`calculate_measures`): "auto" bands genomes of 16384 bp or more with
     seeded, stability-verified bands, True forces banding, False full
-    width. `use_native=False` (the Python cycle removal),
-    `exact_parity=False` and `consensus=True` are not ported yet and raise
-    NotImplementedError."""
+    width. `exact_parity=False` switches the layout to the fast greedy
+    chaining (graph/greedy.py, with its consensus polish; documented
+    non-parity semantics); `consensus=True` polishes the exact-parity
+    contigs by pileup majority vote (graph/consensus.py).
+    `use_native=False` with the exact layout (the Python cycle removal) is
+    not ported yet and raises NotImplementedError."""
     dev = resolve_device(device)
     with stage("simulate.reads", items=N):
         error_free = generate_error_free_reads(genome, l, N, rng=rng)

@@ -14,8 +14,10 @@ Reference semantics (overlapGraphs.py:5-61):
 
 Edge insertion order is preserved exactly (it determines adjacency order,
 hence cycle-removal and topological order, hence the contigs): candidates
-are enumerated on the host in reference order, and scoring on a CUDA device
-runs the all-pairs kernel over every unique pair and gathers the candidates.
+are enumerated in reference order (the sort-join, on the card for
+0 < k <= 15), and scoring on a CUDA device either runs the all-pairs kernel
+over every unique pair and gathers the candidates (the dense route) or the
+pair-list kernel over the candidates alone (the sparse route).
 """
 
 from __future__ import annotations
@@ -114,24 +116,27 @@ def candidate_pairs(unique_reads: list[str], k: int) -> list[tuple[int, int]]:
     return pairs
 
 
-def candidate_pairs_arrays(unique_reads: list[str], k: int):
+def candidate_pairs_arrays(unique_reads: list[str], k: int,
+                           device="cuda"):
     """Ordered candidate pairs as (ia, ib) int32 index arrays.
 
     Same enumeration order as `candidate_pairs` (the reference's,
     overlapGraphs.py:30-53), vectorized: k=0 is a numpy meshgrid,
-    1 <= k <= 31 the numpy sort-join (graph/candidates.py), larger k the
-    dict join.
+    1 <= k <= 31 the sort-join as torch ops on `device`
+    (graph/candidates.py), larger k the dict join. `device` is a torch
+    device spec ("cuda" by default; True and False as in the JAX package).
     """
     from .candidates import (
-        MAX_HOST_K,
+        MAX_JOIN_K,
         candidate_pairs_dense,
-        candidate_pairs_numpy,
+        candidate_pairs_device,
     )
 
     if k == 0:
         return candidate_pairs_dense(len(unique_reads))
-    if 0 < k <= MAX_HOST_K:
-        return candidate_pairs_numpy(unique_reads, k)
+    dev = dispatch.resolve_device(device)
+    if 0 < k <= MAX_JOIN_K:
+        return candidate_pairs_device(unique_reads, k, device=dev)
     pairs = candidate_pairs(unique_reads, k)
     ia = np.fromiter((p[0] for p in pairs), np.int32, len(pairs))
     ib = np.fromiter((p[1] for p in pairs), np.int32, len(pairs))
@@ -157,15 +162,16 @@ def score_pairs(unique_reads: list[str], pairs, chunk: int = 16384,
     `pairs` is a list of (ua, ub) tuples or an (ia, ib) index-array tuple.
     Returns (scores, end_positions) int32 numpy arrays aligned with `pairs`.
 
-    On a CUDA device the all-pairs kernel (ops/overlap_allpairs.py) scores
-    every ordered pair of unique reads, at U x U exactly, and the requested
-    entries are gathered on the device and copied to the host once. That
-    holds up to DENSE_MAX_U unique reads, or at any U when the candidates
-    are dense (>= 5% of U^2); otherwise the JAX package runs its sparse
-    chunked scorer, which is not ported yet (ROADMAP A5). On a CPU device
-    the C++ engine scores the pairs, as in the JAX package on a CPU backend.
-    `chunk` is the pair batch of that sparse route (JAX signature parity);
-    the dense and host routes take every pair at once.
+    On a CUDA device, up to DENSE_MAX_U unique reads or at any U when the
+    candidates are dense (>= 5% of U^2), the all-pairs kernel
+    (ops/overlap_allpairs.py) scores every ordered pair of unique reads, at
+    U x U exactly, and the requested entries are gathered on the device;
+    otherwise (the sparse route) the pair-list kernel (ops/overlap.py)
+    scores the requested pairs alone, in one launch. Either way the results
+    come back to the host once. On a CPU device the C++ engine scores the
+    pairs, as in the JAX package on a CPU backend. `chunk` is the JAX
+    package's pair batch of its sparse route (signature parity); every
+    route here takes every pair at once.
 
     Feeds the global tracer's "score.pairs" stage.
     """
@@ -185,15 +191,18 @@ def _score_pairs_impl(unique_reads: list[str], ia, ib, dev: torch.device):
         from ..native import graphcore
 
         return graphcore.overlap_nogap_pairs(left, lens, ia, ib)
-    if u_count > DENSE_MAX_U and n_pairs * 20 < u_count * u_count:
-        raise NotImplementedError(
-            f"{n_pairs} sparse candidate pairs over {u_count} > "
-            f"{DENSE_MAX_U} unique reads need the sparse pair scorer "
-            "(ROADMAP A5), not ported yet")
-    from ..ops.overlap_allpairs import overlap_scores_all_pairs
-
     codes = torch.from_numpy(left).to(dev)
     lengths = torch.from_numpy(lens).to(dev)
+    if u_count > DENSE_MAX_U and n_pairs * 20 < u_count * u_count:
+        from ..ops.overlap import overlap_scores_pairs
+
+        s, e = overlap_scores_pairs(codes, lengths,
+                                    torch.from_numpy(ia).to(dev),
+                                    torch.from_numpy(ib).to(dev))
+        both = torch.stack([s, e]).cpu().numpy()
+        return both[0], both[1]
+    from ..ops.overlap_allpairs import overlap_scores_all_pairs
+
     s_mat, e_mat = overlap_scores_all_pairs(codes, lengths)
     ia_d = torch.from_numpy(ia.astype(np.int64)).to(dev)
     ib_d = torch.from_numpy(ib.astype(np.int64)).to(dev)
@@ -236,7 +245,7 @@ def build_overlap_graph(reads: list[str], k: int = 5,
     offsets = np.zeros(len(unique) + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
 
-    ia, ib = candidate_pairs_arrays(unique, k)
+    ia, ib = candidate_pairs_arrays(unique, k, device=dev)
     scores, ends = score_pairs(unique, (ia, ib), device=dev)
     src, dst, weight, end_pos = fanout_edges(ia, ib, scores, ends,
                                              counts, offsets)

@@ -1,8 +1,12 @@
-"""Host k-mer candidate-pair generation (numpy sort-join).
+"""k-mer candidate-pair generation: one sort-join as torch ops on the
+caller's device, and the dense enumeration for k = 0.
 
-A copy of the JAX package's host join (``candidate_pairs_numpy``) and dense
-enumeration (``candidate_pairs_dense``): bit-identical pair order to the
-reference's dict probe (``overlapGraphs.py:30-49``):
+The JAX package has two joins, an XLA program for k <= 15
+(``candidate_pairs_device``) and a numpy copy for k <= 31
+(``candidate_pairs_numpy``); both compute the same pairs. Here one join,
+``candidate_pairs_device``, runs as torch ops on a card or on the host,
+and ``candidate_pairs_dense`` is a copy. Both give the reference dict
+probe's pair order bit for bit (``overlapGraphs.py:30-49``):
 
 - the reference iterates source reads ua in unique order and, per ua,
   walks `prefix_index[suffix]` — a list appended in unique order, i.e.
@@ -16,66 +20,101 @@ reference's dict probe (``overlapGraphs.py:30-49``):
 Reads shorter than k use the whole read as both prefix and suffix
 (`overlapGraphs.py:33-47`), so keys append a TERMINATOR digit:
 key = Σ_{i<m} code_i·4^i + 4^m for m = min(len, k), injective across
-lengths; int64 keys hold k up to 31.
-
-The device join (ROADMAP A7) is not ported yet: the JAX package runs it
-only from 50,000 unique reads up, and this slice's main path has 9,510.
+lengths; int64 keys hold k up to 31 (the JAX package's int32 lanes cap
+its device join at 15).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.encoding import encode_batch
 
-MAX_HOST_K = 31    # numpy join uses int64 keys: 31-mer + terminator = 63 bits
+MAX_JOIN_K = 31  # int64 keys: 31-mer + terminator = 63 bits
 
 
-def candidate_pairs_numpy(unique_reads: list[str], k: int):
-    """Stable-argsort + searchsorted k-mer join in numpy — bit-identical
-    pair order to `build.candidate_pairs`.
+def kmer_join_keys(left: torch.Tensor, lens: torch.Tensor, k: int):
+    """(prefix_key, suffix_key) int64 per read; equal keys <=> equal
+    strings.
 
-    Unlike the reference's dict probe (overlapGraphs.py:30-49) it is
-    vectorized end to end. int64 keys hold k up to 31.
+    left: (U, W) int8 LEFT-aligned codes; lens: (U,) true lengths.
+    key = sum_{i<m} code_i * 4^i + 4^m (terminator digit), m = min(len, k).
     """
-    if not 0 < k <= MAX_HOST_K:
-        raise ValueError(f"numpy join supports 1..{MAX_HOST_K}, got k={k}")
+    w = left.shape[1]
+    dev = left.device
+    lens64 = lens.to(torch.int64)
+    m = torch.clamp(lens64, max=k)                     # effective k-mer len
+    pos = torch.arange(w, dtype=torch.int64, device=dev)
+    codes = left.to(torch.int64)
+    # weights 4^i for i < m; the shift is capped so masked-out lanes of
+    # long reads stay in range
+    pow4 = torch.ones((), dtype=torch.int64, device=dev) << (
+        2 * torch.clamp(pos, max=MAX_JOIN_K))
+    pref_mask = pos[None, :] < m[:, None]
+    pref = torch.where(pref_mask, codes * pow4[None, :], 0).sum(dim=1)
+    rel = pos[None, :] - (lens64 - m)[:, None]
+    suf_mask = (rel >= 0) & (rel < m[:, None])
+    sw = torch.ones((), dtype=torch.int64, device=dev) << (
+        2 * torch.clamp(rel, 0, MAX_JOIN_K))
+    suf = torch.where(suf_mask, codes * sw, 0).sum(dim=1)
+    term = torch.ones((), dtype=torch.int64, device=dev) << (2 * m)
+    return pref + term, suf + term
+
+
+def _join_index(pref: torch.Tensor, suf: torch.Tensor):
+    """Sorted-join bookkeeping: (order, lo, hi) with order a stable argsort
+    of prefix keys and [lo[u], hi[u]) the match range for read u's suffix."""
+    order = torch.argsort(pref, stable=True)
+    skeys = pref[order]
+    lo = torch.searchsorted(skeys, suf, side="left")
+    hi = torch.searchsorted(skeys, suf, side="right")
+    return order, lo, hi
+
+
+def _emit_pairs(cum: torch.Tensor, lo: torch.Tensor, order: torch.Tensor,
+                p: torch.Tensor):
+    """Flatten the ragged per-ua match groups into (ua, ub).
+
+    Pair p lives in group ua = searchsorted(cum, p, 'right') - 1 at
+    within-group offset p - cum[ua]; its target is order[lo[ua] + r].
+    """
+    ua = torch.searchsorted(cum, p, side="right") - 1
+    ub = order[lo[ua] + (p - cum[ua])]
+    return ua, ub
+
+
+def candidate_pairs_device(unique_reads: list[str], k: int, device="cuda"):
+    """The sort-join as torch ops on ``device`` (a card or the host);
+    reference enumeration order.
+
+    Returns (ia, ib) int32 numpy arrays, equal element for element to the
+    JAX package's joins: a stable argsort keeps ub ascending within each
+    key. Requires 0 < k <= MAX_JOIN_K. The codes go to the device once; the
+    pair count (one sync) and the pairs come back.
+    """
+    if not 0 < k <= MAX_JOIN_K:
+        raise ValueError(f"k-mer join supports 1..{MAX_JOIN_K}, got k={k}")
     u_count = len(unique_reads)
     if u_count == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    dev = torch.device(device)
     left, lens = encode_batch(unique_reads, align="left")
-    codes = left.astype(np.int64)
-    lens64 = lens.astype(np.int64)
-    w = codes.shape[1]
-    m = np.minimum(lens64, k)                          # effective k-mer len
-    pos = np.arange(w, dtype=np.int64)
-    pow4 = np.left_shift(np.int64(1), 2 * np.minimum(pos, MAX_HOST_K))
-    pref_mask = pos[None, :] < m[:, None]
-    pref = np.where(pref_mask, codes * pow4[None, :], 0).sum(axis=1)
-    rel = pos[None, :] - (lens64 - m)[:, None]
-    suf_mask = (rel >= 0) & (rel < m[:, None])
-    sw = np.left_shift(np.int64(1), 2 * np.clip(rel, 0, MAX_HOST_K))
-    suf = np.where(suf_mask, codes * sw, 0).sum(axis=1)
-    term = np.left_shift(np.int64(1), 2 * m)           # 4^m terminator
-    pref += term
-    suf += term
-
-    order = np.argsort(pref, kind="stable")
-    skeys = pref[order]
-    lo = np.searchsorted(skeys, suf, side="left")
-    cnt = np.searchsorted(skeys, suf, side="right") - lo
-    total = int(cnt.sum())
+    pref, suf = kmer_join_keys(torch.from_numpy(left).to(dev),
+                               torch.from_numpy(lens).to(dev), k)
+    order, lo, hi = _join_index(pref, suf)
+    cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.cumsum(hi - lo, dim=0)])
+    total = int(cum[-1])
     if total == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
     if total >= 2**31:
         raise ValueError("candidate count exceeds int32 indexing")
-    cum = np.zeros(u_count + 1, dtype=np.int64)
-    np.cumsum(cnt, out=cum[1:])
-    ua = np.repeat(np.arange(u_count, dtype=np.int64), cnt)
-    within = np.arange(total, dtype=np.int64) - cum[ua]
-    ub = order[lo[ua] + within]
+    ua, ub = _emit_pairs(cum, lo, order,
+                         torch.arange(total, dtype=torch.int64, device=dev))
     keep = ua != ub  # reference skips identical reads (overlapGraphs.py:52)
-    return ua[keep].astype(np.int32), ub[keep].astype(np.int32)
+    pairs = torch.stack([ua[keep], ub[keep]]).to(torch.int32).cpu().numpy()
+    return pairs[0], pairs[1]
 
 
 def candidate_pairs_dense(u_count: int):

@@ -3,9 +3,9 @@ removal -> topological layout -> contig merge.
 
 Equivalent of the reference's `assemble_contigs_using_overlap_graphs`
 (overlapGraphs.py:151-193), returning the identical contig list (content and
-order) for identical input reads. This slice ports the exact-parity layout
-only; the fast greedy layout (`exact_parity=False`) and the consensus polish
-(`consensus=True`) raise NotImplementedError until their slice.
+order) for identical input reads; with `exact_parity=False` the fast greedy
+layout (graph/greedy.py) and with `consensus=True` the consensus polish
+(graph/consensus.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,26 +35,31 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
         device: torch device that scores the candidate pairs ("cuda" by
             default, True and False as in the JAX package; raises without
             a card).
-        use_native: must be True: the C++ cycle removal (the Python one
-            is ROADMAP A9).
-        exact_parity: must be True in this slice (the reference layout).
-        consensus: must be False in this slice.
+        use_native: the C++ engine. With exact_parity it must be True
+            (the Python cycle removal is ROADMAP A9); with the fast layout
+            False runs the Python accept loop.
+        exact_parity: True (default) reproduces the reference layout
+            bit for bit; False switches to the fast greedy best-overlap
+            chaining layout (graph/greedy.py), with its own consensus
+            default (on).
+        consensus: polish the exact-parity walk's contigs by majority vote
+            over their read pileup (graph/consensus.py); off by default.
 
     Every stage feeds the global tracer (utils/tracing.py).
     """
-    if not exact_parity:
-        raise NotImplementedError(
-            "the fast greedy layout (exact_parity=False) is not ported yet "
-            "(ROADMAP A6)")
-    if consensus:
-        raise NotImplementedError(
-            "the consensus polish (consensus=True) is not ported yet "
-            "(ROADMAP A6)")
     dev = resolve_device(device)
 
     def log(msg):
         if verbose:
             print(msg)
+
+    if not exact_parity:
+        from ..graph.greedy import assemble_contigs_greedy
+
+        log(f"Fast-layout assembly (k={k}, reads={len(reads)})...")
+        with stage("graph.greedy_layout"):
+            return assemble_contigs_greedy(reads, k=k, device=dev,
+                                           use_native=use_native)
 
     log(f"Constructing overlap graph (k={k}, reads={len(reads)})...")
     with stage("graph.build"):
@@ -67,4 +72,13 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
         topo_nodes = topological_order(g)
     log("Creating contigs...")
     with stage("graph.walk_contigs"):
-        return walk_contigs(g, topo_nodes)
+        if not consensus:
+            return walk_contigs(g, topo_nodes)
+        contigs, (pr, po, pc) = walk_contigs(g, topo_nodes,
+                                             with_placements=True)
+    log("Consensus polish...")
+    with stage("graph.consensus"):
+        from ..graph.consensus import polish_contigs
+
+        return polish_contigs(contigs, g.unique_reads, pr, po, pc,
+                              place_weight=g.counts[pr].astype("int64"))

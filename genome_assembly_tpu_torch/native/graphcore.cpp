@@ -8,11 +8,12 @@
 // reference's documented 48-hour scaling wall (report p.4 footnote ii) —
 // the C++ engine is typically 100-1000x the Python/NetworkX loop.
 //
-// Exposed via a C ABI for ctypes (see graphcore.py). Four entry points,
+// Exposed via a C ABI for ctypes (see graphcore.py). Five entry points,
 // the ones this package calls: gc_remove_cycles_v2 (cycle removal),
 // gc_overlap_nogap_pairs (host pair scoring on a CPU device),
 // gc_local_align_batch and gc_local_align_banded_batch (the metrics pass's
-// full-width and banded Smith-Waterman on a CPU device).
+// full-width and banded Smith-Waterman on a CPU device) and gc_greedy_chain
+// (the accept loop of the fast greedy layout).
 
 #include <algorithm>
 #include <atomic>
@@ -730,6 +731,45 @@ int64_t gc_local_align_banded_batch(
     for (auto& th : pool) th.join();
   }
   return B;
+}
+
+// Greedy best-overlap chain acceptance (the fast non-parity layout mode,
+// graph/greedy.py): edges arrive via `order` (score-desc, stable); accept
+// (u -> v) iff u has no successor, v has no predecessor, and u, v are on
+// different chains (union-find with path halving), so accepted edges form
+// simple chains. One linear pass replaces the reference's whole
+// cycle-removal / topo / walk stack (overlapGraphs.py:106-193) when exact
+// parity is not required. Returns the number of accepted edges; fills
+// succ[u] (successor node or -1) and chain_edge[u] (the accepted edge).
+int64_t gc_greedy_chain(int64_t n_nodes, int64_t n_edges, const int32_t* src,
+                        const int32_t* dst, const int64_t* order,
+                        int32_t* succ, int32_t* pred, int64_t* chain_edge) {
+  std::vector<int64_t> parent(n_nodes);
+  for (int64_t i = 0; i < n_nodes; ++i) parent[i] = i;
+  for (int64_t i = 0; i < n_nodes; ++i) succ[i] = -1;
+  for (int64_t i = 0; i < n_nodes; ++i) pred[i] = -1;
+  for (int64_t i = 0; i < n_nodes; ++i) chain_edge[i] = -1;
+  auto find = [&](int64_t x) {
+    while (parent[x] != x) {
+      parent[x] = parent[parent[x]];  // path halving
+      x = parent[x];
+    }
+    return x;
+  };
+  int64_t accepted = 0;
+  for (int64_t i = 0; i < n_edges; ++i) {
+    const int64_t e = order[i];
+    const int64_t u = src[e], v = dst[e];
+    if (succ[u] != -1 || pred[v] != -1 || u == v) continue;
+    const int64_t ru = find(u), rv = find(v);
+    if (ru == rv) continue;
+    parent[ru] = rv;
+    succ[u] = (int32_t)v;
+    pred[v] = (int32_t)u;
+    chain_edge[u] = e;
+    ++accepted;
+  }
+  return accepted;
 }
 
 }  // extern "C"

@@ -29,6 +29,7 @@ def _declare(lib) -> None:
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     ll = ctypes.c_longlong
     lib.gc_remove_cycles_v2.restype = ll
     lib.gc_remove_cycles_v2.argtypes = [
@@ -68,6 +69,12 @@ def _declare(lib) -> None:
         i32, i32, i32, i32,     # score, bi, bj, steps out
         u8,                     # ops out (B, ops_stride)
         ll,                     # n_threads
+    ]
+    lib.gc_greedy_chain.restype = ll
+    lib.gc_greedy_chain.argtypes = [
+        ll, ll,                 # n_nodes, n_edges
+        i32, i32, i64,          # src, dst, order
+        i32, i32, i64,          # succ, pred, chain_edge out
     ]
 
 
@@ -121,6 +128,25 @@ def overlap_nogap_pairs(reads_mat, lens, ia, ib, match_score: int = 10,
                                    lens, ia, ib, match_score, mismatch,
                                    score, end, _n_threads())
     return score, end
+
+
+def greedy_chain(n_nodes: int, src, dst, order):
+    """C++ greedy best-overlap chain acceptance (the fast layout).
+
+    Returns (succ, chain_edge): succ[u] = accepted successor (-1 none),
+    chain_edge[u] = accepted edge index for the u -> succ[u] link.
+    Identical by construction to graph.greedy.greedy_chain_python.
+    """
+    lib = load()
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    order = np.ascontiguousarray(order, dtype=np.int64)
+    succ = np.empty(n_nodes, np.int32)
+    pred = np.empty(n_nodes, np.int32)
+    chain_edge = np.empty(n_nodes, np.int64)
+    lib.gc_greedy_chain(n_nodes, len(order), src, dst, order, succ, pred,
+                        chain_edge)
+    return succ, chain_edge
 
 
 def local_align_batch_suffix_windows(queries: list[str], genome_codes,

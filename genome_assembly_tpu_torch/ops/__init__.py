@@ -1,4 +1,8 @@
-from .overlap import right_align
+from .overlap import (
+    overlap_scores_pairs,
+    overlap_scores_pairs_plain,
+    right_align,
+)
 from .overlap_allpairs import (
     overlap_scores_all_pairs,
     overlap_scores_block,
@@ -9,5 +13,7 @@ __all__ = [
     "overlap_scores_all_pairs",
     "overlap_scores_block",
     "overlap_scores_block_plain",
+    "overlap_scores_pairs",
+    "overlap_scores_pairs_plain",
     "right_align",
 ]

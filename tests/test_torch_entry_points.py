@@ -2,7 +2,9 @@
 and the overlap wrapper refuses lengths outside [0, L] (ROADMAP §C 2).
 
 - every reference keyword is accepted; values whose path is not ported
-  raise NotImplementedError naming their ROADMAP item;
+  raise NotImplementedError naming their ROADMAP item, and the values
+  ported since (the fast layout, the consensus polish, the read
+  placements) give the JAX package's results;
 - ``device=True`` / ``False`` mean the card / the host, as in the JAX
   package: False gives the result of ``device="cpu"``, True raises here
   without a card.
@@ -14,12 +16,22 @@ import numpy as np
 import pytest
 import torch
 
+from genome_assembly_tpu.experiments.runner import (
+    test_assembly as jax_run_assembly,
+)
+from genome_assembly_tpu.graph.build import (
+    build_overlap_graph as jax_build_overlap_graph,
+)
+from genome_assembly_tpu.graph.cycles import remove_cycles as jax_remove_cycles
+from genome_assembly_tpu.graph.layout import walk_contigs as jax_walk_contigs
+from genome_assembly_tpu.graph.topo import topological_order as jax_topo
 from genome_assembly_tpu_torch.core.dispatch import use_host_metrics
 from genome_assembly_tpu_torch.experiments.runner import (
     test_assembly as run_assembly,
 )
 from genome_assembly_tpu_torch.graph.build import (
     build_overlap_graph,
+    candidate_pairs_arrays,
     dedup_reads,
     score_pairs,
 )
@@ -41,10 +53,10 @@ def _genome(n=600, seed=0):
     return "".join(r.choice("ACGT") for _ in range(n))
 
 
-def _run(**kwargs):
-    return run_assembly(_genome(), 40, 60, 0.01, 5, "kw", 1,
-                         rng=random.Random(1),
-                         np_rng=np.random.RandomState(1), **kwargs)
+def _run(run=run_assembly, **kwargs):
+    return run(_genome(), 40, 60, 0.01, 5, "kw", 1,
+               rng=random.Random(1), np_rng=np.random.RandomState(1),
+               **kwargs)
 
 
 def _graph():
@@ -67,6 +79,9 @@ def test_reference_keywords_are_accepted(tmp_path):
     s1 = score_pairs(unique, [(0, 1), (1, 2)], chunk=2, device="cpu")
     s2 = score_pairs(unique, [(0, 1), (1, 2)], device="cpu")
     assert all(np.array_equal(a, b) for a, b in zip(s1, s2))
+    c1 = candidate_pairs_arrays(unique, 5, device=False)
+    c2 = candidate_pairs_arrays(unique, 5, device="cpu")
+    assert len(c1[0]) and all(np.array_equal(a, b) for a, b in zip(c1, c2))
     m1, d1 = calculate_measures(contigs, reads, 60, 40, 0.01, 5, genome,
                                 "kw", 1, str(tmp_path), banded=True, band=16,
                                 device="cpu")
@@ -95,13 +110,38 @@ def test_device_true_needs_a_card():
     (lambda: assemble_contigs_using_overlap_graphs(
         _graph()[0], device="cpu", use_native=False), "A9"),
     (lambda: remove_cycles(_graph()[1], use_native=False), "A9"),
-    (lambda: walk_contigs(_graph()[1], [], with_placements=True), "A6"),
-    (lambda: _run(device="cpu", exact_parity=False), "A6"),
-    (lambda: _run(device="cpu", consensus=True), "A6"),
 ])
 def test_unported_values_name_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+def _walk_with_placements(build, remove, topo, walk):
+    reads, _ = _graph()
+    g = build(reads, k=5, **({} if build is jax_build_overlap_graph
+                             else {"device": "cpu"}))
+    remove(g)
+    contigs, placements = walk(g, topo(g), with_placements=True)
+    return contigs, [p.tolist() for p in placements]
+
+
+@pytest.mark.parametrize("call", ["placements", "fast layout", "consensus"])
+def test_formerly_unported_values_match_jax(call):
+    """The three values that raised naming ROADMAP A6 before they were
+    ported give the JAX package's results."""
+    if call == "placements":
+        got = _walk_with_placements(build_overlap_graph, remove_cycles,
+                                    topological_order, walk_contigs)
+        want = _walk_with_placements(jax_build_overlap_graph,
+                                     jax_remove_cycles, jax_topo,
+                                     jax_walk_contigs)
+        assert got == want and got[1][0]
+        return
+    kw = ({"exact_parity": False} if call == "fast layout"
+          else {"consensus": True})
+    got = _run(device="cpu", **kw)
+    want = _run(run=jax_run_assembly, **kw)
+    assert got[0] == want[0] and got[1] == want[1] and got[2] == want[2]
 
 
 def test_unknown_metrics_executor_is_refused():

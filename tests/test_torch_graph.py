@@ -51,7 +51,7 @@ def test_candidate_pairs_arrays_match_jax(k):
     _, reads = _reads(1)
     unique, _ = jax_dedup_reads(reads)
     ia0, ib0 = jax_candidate_pairs_arrays(unique, k, device=False)
-    ia, ib = port_build.candidate_pairs_arrays(unique, k)
+    ia, ib = port_build.candidate_pairs_arrays(unique, k, device="cpu")
     np.testing.assert_array_equal(ia, ia0)
     np.testing.assert_array_equal(ib, ib0)
     assert ia.dtype == ib.dtype == np.int32
@@ -81,12 +81,25 @@ def test_build_overlap_graph_edges_match_jax(k, route, monkeypatch):
 
 
 def test_sparse_route_beyond_dense_limit_is_not_ported(monkeypatch):
+    """The sparse route, which raised naming ROADMAP A5 until it was
+    ported, gives the JAX package's edges: past DENSE_MAX_U with sparse
+    candidates the pair-list scorer (its plain version on CPU tensors)
+    scores the candidates alone, and the all-pairs scorer is not called."""
     _, reads = _reads(3, n=60)
     monkeypatch.setattr(dispatch, "use_host_pair_scoring",
                         lambda device: False)
     monkeypatch.setattr(port_build, "DENSE_MAX_U", 4)
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_build.build_overlap_graph(reads, k=8, device="cpu")
+
+    def no_dense(*args, **kwargs):
+        raise AssertionError("the dense route was taken")
+
+    monkeypatch.setattr(overlap_allpairs, "overlap_scores_all_pairs",
+                        no_dense)
+    g = port_build.build_overlap_graph(reads, k=8, device="cpu")
+    g0 = jax_build_overlap_graph(reads, k=8)
+    assert len(g.src) > 0
+    for got, ref in zip(_edges(g), _edges(g0)):
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_dense_route_scores_unpadded_u_by_u(monkeypatch):

@@ -22,8 +22,10 @@ from genome_assembly_tpu_torch import _build
 from genome_assembly_tpu_torch.experiments.runner import (
     test_assembly as run_assembly,
 )
+from genome_assembly_tpu_torch.graph.build import candidate_pairs_arrays
+from genome_assembly_tpu_torch.graph.greedy import assemble_contigs_greedy
 from genome_assembly_tpu_torch.native import graphcore
-from genome_assembly_tpu_torch.ops import overlap_allpairs
+from genome_assembly_tpu_torch.ops import overlap, overlap_allpairs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(genome_assembly_tpu_torch.__file__))
@@ -107,3 +109,33 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
                         lambda: str(tmp_path / "no-such-nvcc"))
     with pytest.raises(RuntimeError, match="overlap_allpairs.*failed"):
         overlap_allpairs.load_kernel()
+
+
+def test_new_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        candidate_pairs_arrays(["ACGTA", "CGTAC"], 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        assemble_contigs_greedy(["ACGTA", "CGTAC"], k=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_assembly("ACGT" * 50, 20, 10, 0.0, 3, "t", 1,
+                     rng=random.Random(0), exact_parity=False)
+
+
+def test_pair_wrapper_never_falls_back_off_the_cpu():
+    codes = torch.zeros((2, 4), dtype=torch.int8, device="meta")
+    lens = torch.zeros((2,), dtype=torch.int32, device="meta")
+    idx = torch.zeros((3,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        overlap.overlap_scores_pairs(codes, lens, idx, idx)
+
+
+def test_failed_pair_kernel_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(overlap, "_LIB", None)
+    monkeypatch.setattr(overlap_allpairs, "_nvcc",
+                        lambda: str(tmp_path / "no-such-nvcc"))
+    with pytest.raises(RuntimeError, match="overlap_pairs.*failed"):
+        overlap.load_kernel()
+    assert overlap._LIB is None

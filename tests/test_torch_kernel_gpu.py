@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on a
-card: the all-pairs overlap kernel and the two Smith-Waterman kernels.
+card: the all-pairs and the pair-list overlap kernels and the two
+Smith-Waterman kernels.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from genome_assembly_tpu_torch.ops import overlap as op
 from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
 from genome_assembly_tpu_torch.ops import smith_waterman as sw
 
@@ -170,6 +172,91 @@ def test_rejects_lengths_outside_the_padded_width(bad, cuda_device):
     ta, tal = _to(cuda_device, a, al)
     with pytest.raises(ValueError, match="a_len"):
         oa.overlap_scores_block(ta, tal, ta, tal)
+
+
+def _pair_case(name):
+    """(codes, lengths, ia, ib, match, mismatch) for the pair-list kernel."""
+    rs = np.random.RandomState(17)
+
+    def pairs(u, n):
+        return (rs.randint(0, u, n).astype(np.int32),
+                rs.randint(0, u, n).astype(np.int32))
+
+    if name == "lengths 0/1/L-1/L, W=150":
+        c, cl = _batch(rs, 300, 150, rs.choice(
+            np.r_[[0, 1, 149, 150] * 10, np.arange(151)], size=300))
+        return c, cl, *pairs(300, 20_000), 10, -1
+    if name == "W=1023":
+        c, cl = _batch(rs, 48, 1023, rs.choice([0, 1, 1022, 1023, 600], 48))
+        return c, cl, *pairs(48, 2000), 10, -1
+    if name == "internal PAD":
+        c, cl = _batch(rs, 200, 150)
+        for r in range(0, 200, 2):
+            c[r, rs.randint(0, cl[r], size=4)] = 4
+        return c, cl, *pairs(200, 10_000), 10, -1
+    if name == "penalties 5/-4":
+        c, cl = _batch(rs, 120, 60)
+        return c, cl, *pairs(120, 10_000), 5, -4
+    if name == "ia == ib and repeated pairs":
+        c, cl = _batch(rs, 64, 150)
+        ia = np.r_[np.arange(64), [5] * 300].astype(np.int32)
+        ib = np.r_[np.arange(64), [5, 6, 7] * 100].astype(np.int32)
+        return c, cl, ia, ib, 10, -1
+    if name == "W=33, one pair a block and a ragged last block":
+        c, cl = _batch(rs, 30, 33)
+        return c, cl, *pairs(30, 9), 10, -1
+    raise KeyError(name)
+
+
+PAIR_CASES = ["lengths 0/1/L-1/L, W=150", "W=1023", "internal PAD",
+              "penalties 5/-4", "ia == ib and repeated pairs",
+              "W=33, one pair a block and a ragged last block"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pair_kernel_equals_plain_version(case, cuda_device):
+    c, cl, ia, ib, ms, mm = _pair_case(case)
+    args = _to(cuda_device, c, cl, ia, ib)
+    before = op.launches
+    s, e = op.overlap_scores_pairs(*args, ms, mm)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    s0, e0 = op.overlap_scores_pairs_plain(*args, ms, mm)
+    assert torch.equal(s, s0) and torch.equal(e, e0)
+    s1, e1 = op.overlap_scores_pairs_plain(*_to("cpu", c, cl, ia, ib),
+                                           ms, mm)
+    assert torch.equal(s.cpu(), s1) and torch.equal(e.cpu(), e1)
+
+
+@pytest.mark.gpu
+def test_pair_kernel_on_codes_at_an_odd_address(cuda_device):
+    c, cl, ia, ib, ms, mm = _pair_case("internal PAD")
+    flat = torch.empty(c.size + 1, dtype=torch.int8, device=cuda_device)
+    tc = flat[1:].view(c.shape)
+    tc.copy_(torch.from_numpy(c))
+    tl, tia, tib = _to(cuda_device, cl, ia, ib)
+    s, e = op.overlap_scores_pairs(tc, tl, tia, tib)
+    s0, e0 = op.overlap_scores_pairs_plain(tc, tl, tia, tib)
+    assert torch.equal(s, s0) and torch.equal(e, e0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["length -1", "length W+1", "index U"])
+def test_pair_kernel_rejects_bad_inputs(bad, cuda_device):
+    c, cl = _batch(np.random.RandomState(6), 6, 20)
+    ia = np.arange(6, dtype=np.int32)
+    if bad == "length -1":
+        cl[1] = -1
+    elif bad == "length W+1":
+        cl[1] = 21
+    else:
+        ia[3] = 6
+    before = op.launches
+    with pytest.raises(ValueError, match="lengths" if "length" in bad
+                       else "ia"):
+        op.overlap_scores_pairs(*_to(cuda_device, c, cl, ia, ia[::-1].copy()))
+    assert op.launches == before
 
 
 def _queries(rs, genome, lengths, subst=0.03):

@@ -80,6 +80,30 @@ def test_port_long_genome_path_on_the_host(tmp_path):
             == smoke.LONG_EXPECTED)
 
 
+@pytest.mark.parametrize("row", ["exact, k=15", "fast, k=5"])
+def test_long90_constants_match_jax_test_assembly(row, tmp_path):
+    """The JAX package reproduces chip_smoke.py's constants for the
+    long-genome path at LONG_GENOME.json's size (N=90000; the sparse
+    route, and for "fast, k=5" the greedy layout with consensus)."""
+    smoke = _load_smoke()
+    lg = smoke.LONG90
+    kw = dict(smoke.LONG90_ROWS)[row]
+    contigs, measures, _, _ = run_jax_assembly(
+        smoke.long_genome(), lg["read_length"], lg["num_reads"],
+        lg["error_prob"], kw["k"], "long90", 1, path=str(tmp_path),
+        rng=random.Random(lg["rng_seed"]),
+        np_rng=np.random.RandomState(lg["np_seed"]),
+        exact_parity=kw["exact_parity"])
+    got = {
+        "contigs": len(contigs),
+        "n50": calculate_n50(contigs),
+        "total_length": sum(len(c) for c in contigs),
+        "sha256": hashlib.sha256("\n".join(contigs).encode()).hexdigest(),
+        "measures": measures,
+    }
+    assert got == smoke.LONG90_EXPECTED[row]
+
+
 def test_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -97,3 +121,13 @@ def test_smoke_bound_counts_comparisons():
     brute = sum(min(n, j) for n in a_len for m in b_len
                 for j in range(1, m + 1))
     assert smoke.comparisons(a_len, b_len, 12) == brute
+
+
+def test_smoke_bound_counts_pair_list_comparisons():
+    smoke = _load_smoke()
+    rs = np.random.RandomState(1)
+    a_len = rs.randint(0, 13, size=40)
+    b_len = rs.randint(0, 13, size=40)
+    brute = sum(min(n, j) for n, m in zip(a_len, b_len)
+                for j in range(1, m + 1))
+    assert smoke.pair_comparisons(a_len, b_len, 12) == brute
