@@ -18,9 +18,12 @@ Phases, each printed with the elapsed seconds as it ends:
    inside reads, tiles cut ragged, 1x1, lengths <= 8, L=1023, reads
    against themselves with one base changed, rows at an odd address, and
    penalties whose factor the kernel cannot fold into its one-hot bytes).
-   The pair-list overlap kernel: score and end (ragged lengths 0, 1, L-1
+   The pair-list overlap kernels: score and end (ragged lengths 0, 1, L-1
    and L, W = 150 and 1,023, internal PAD, penalties 5/-4, ia == ib and
-   repeated pairs, inputs at an odd address, the main path's reads).
+   repeated pairs, inputs at an odd address, the main path's reads, sorted
+   runs of ia across the warps' chunks, one run mixing clean reads and
+   reads with an N, W = 256 and 257 on either side of the register
+   instances).
    The Smith-Waterman kernels: score, best_i, best_j, start_j and the op
    stream (ragged batches, ties, N inside query and window, q_len 0 and
    window length 0, queries longer than their window, tail windows,
@@ -52,9 +55,11 @@ Phases, each printed with the elapsed seconds as it ends:
    entries take (1, 2, 4 and 8 warps an item; CUDA events and its time
    alone in a profiler trace), its outputs equal to those at the
    wrapper's choice. Phases 4 and 4b print the warps a block the wrapper
-   gave each launch. The pair-list kernel on phase 4c's calls: every pair
-   held against the plain version, its time (CUDA events and alone in a
-   profiler trace), bound, the plain version's and the C++ engine's time,
+   gave each launch. The pair-list kernels on phase 4c's calls: every pair
+   held against the plain version, their time (CUDA events around the
+   wrapper and around the launch entry; the pack kernel and the pair kernel
+   each alone in a profiler trace, with the launches the trace saw), bound,
+   the plain version's and the C++ engine's time,
    and the device join's time; then on PhiX's candidate pairs beside the
    all-pairs kernel, whose gathered scores and ends it must equal.
 
@@ -171,11 +176,11 @@ KERNEL_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_allpairs.cu"
 KERNEL_REPLACES = "genome_assembly_tpu/ops/overlap_allpairs.py:312"
 PAIRS_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_pairs.cu"
 # an XLA program of the JAX package (not a Pallas kernel)
-PAIRS_REPLACES = "genome_assembly_tpu/ops/overlap.py:70"
+PAIRS_REPLACES = "genome_assembly_tpu/ops/overlap.py:71"
 SW_SOURCE = "genome_assembly_tpu_torch/csrc/smith_waterman.cu"
 # XLA programs of the JAX package (not Pallas kernels)
-SW_FULL_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:155"
-SW_BANDED_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:174"
+SW_FULL_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:157"
+SW_BANDED_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:176"
 # The SW kernels' fewest integer operations per DP cell (substitution
 # select, DPX max of the three moves with the 0 clamp, code select),
 # priced at 132 SMs x 64 int32 lanes x the SM clock.
@@ -423,15 +428,38 @@ def pair_cases(rs, main_codes, main_lens, dev):
                   *pairs(150, 10_000), 10, -1))
     cases.append(("main path reads, 100,000 random pairs", main_codes,
                   main_lens, *pairs(len(main_codes), 100_000), 10, -1))
+    # runs of equal ia as the join emits them (1 to 118 pairs), across the
+    # kernel's chunks of 32 pairs a warp
+    c, cl = random_batch(rs, 4000, 150,
+                         rs.choice([150] * 8 + [1, 33, 149], 4000))
+    ia = np.repeat(np.arange(4000), rs.choice(
+        [1, 2, 31, 32, 33, 64, 76, 118], 4000)).astype(np.int32)
+    cases.append(("sorted runs across chunk boundaries", c, cl, ia,
+                  rs.randint(0, 4000, len(ia)).astype(np.int32), 10, -1))
+    c, cl = random_batch(rs, 300, 150, rs.randint(120, 151, 300))
+    with_n(rs, c, cl, per_read=2)
+    ia = np.repeat([1, 0, 3, 2, 5], 90).astype(np.int32)
+    cases.append(("runs mixing clean reads and reads with an N", c, cl, ia,
+                  rs.randint(0, 300, len(ia)).astype(np.int32), 10, -1))
+    for w in (256, 257):
+        c, cl = random_batch(rs, 200, w, rs.choice([0, 1, w - 33, w - 1, w],
+                                                   200))
+        with_n(rs, c[:60], cl[:60], per_read=2)
+        ia = np.sort(rs.randint(0, 200, 20_000)).astype(np.int32)
+        cases.append((f"W={w}, sorted", c, cl, ia,
+                      rs.randint(0, 200, 20_000).astype(np.int32), 10, -1))
     return cases
 
 
 def time_pairs(calls, reps: int) -> dict:
-    """Time the pair-list kernel on recorded calls and hold its outputs on
-    every pair against the plain version's. CUDA events over `reps` passes
-    of the wrapper, of the launch entry alone and of the wrapper's checks
-    alone, and the kernel alone in a profiler trace of `reps` more; the plain version's and the C++ engine's time on
-    the same pairs; the comparisons and bytes of the bound."""
+    """Time the pair-list kernels on recorded calls and hold their outputs
+    on every pair against the plain version's. CUDA events over `reps`
+    passes of the wrapper, of the launch entry alone (outputs, scratch, the
+    pack kernel and the pair kernel) and of the wrapper's checks alone; the
+    pack kernel and the pair kernel each alone in a profiler trace of
+    `reps` more passes, with the launches of each the trace saw; the plain
+    version's and the C++ engine's time on the same pairs; the comparisons
+    and bytes of the bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,18 +467,6 @@ def time_pairs(calls, reps: int) -> dict:
     from genome_assembly_tpu_torch.ops import overlap as op
 
     outs = [op.overlap_scores_pairs(*a, **k) for a, k in calls]   # warm-up
-    lib = op.load_kernel()
-
-    def raw(codes, lengths, ia, ib, match_score=10, mismatch=-1):
-        """The launch entry alone, without the wrapper's checks."""
-        s = torch.empty(ia.numel(), dtype=torch.int32, device=ia.device)
-        e = torch.empty_like(s)
-        err = lib.overlap_pairs_launch(
-            codes.data_ptr(), lengths.data_ptr(), codes.shape[1],
-            ia.data_ptr(), ib.data_ptr(), ia.numel(), match_score, mismatch,
-            s.data_ptr(), e.data_ptr(),
-            torch.cuda.current_stream().cuda_stream, ia.device.index)
-        assert err == 0, err
 
     def checks(codes, lengths, ia, ib, match_score=10, mismatch=-1):
         op._check_pairs(codes, lengths, ia, ib, match_score, mismatch)
@@ -471,18 +487,21 @@ def time_pairs(calls, reps: int) -> dict:
         return start.elapsed_time(stop) / reps
 
     ms = events_ms(op.overlap_scores_pairs)
-    raw_ms, checks_ms = events_ms(raw), events_ms(checks)
+    raw_ms, checks_ms = events_ms(op.launch), events_ms(checks)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             for a, k in calls:
                 op.overlap_scores_pairs(*a, **k)
         torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages()
-            if "overlap_pairs_kernel" in e.key]
-    alone_us = sum(getattr(e, "device_time_total", 0) for e in mine) / reps
-    # launches the trace saw (reps x calls when it lost none)
-    traced = sum(e.count for e in mine)
+    alone, traced = {}, {}
+    for part in ("pack", "pairs"):
+        mine = [e for e in prof.key_averages()
+                if f"overlap_pairs_kernel_{part}" in e.key]
+        us = sum(getattr(e, "device_time_total", 0) for e in mine) / reps
+        alone[part] = us / 1e3 if us else None
+        # launches the trace saw (reps x calls when it lost none)
+        traced[part] = sum(e.count for e in mine)
     plain_ms, equal, err = 0.0, True, 0
     n_cmp = n_bytes = pairs = 0
     cpp_ms = 0.0
@@ -511,7 +530,7 @@ def time_pairs(calls, reps: int) -> dict:
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     return {
         "pairs": pairs, "ms": ms, "raw_ms": raw_ms, "checks_ms": checks_ms,
-        "alone_ms": alone_us / 1e3 if alone_us else None, "traced": traced,
+        "alone_ms": alone, "traced": traced,
         "plain_ms": plain_ms, "cpp_ms": cpp_ms, "equal": equal,
         "max_abs_err": err, "comparisons": n_cmp, "bytes": n_bytes,
         "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -1243,13 +1262,15 @@ def main() -> int:
             f"{timing['pairs']} pairs (max abs err {timing['max_abs_err']})")
         if not timing["equal"]:
             return 1
+        alone = ", ".join(
+            f"the {part} kernel {timing['alone_ms'][part] or 'not measured'}"
+            f" ms ({timing['traced'][part]} of {3 * len(calls)} launches in "
+            f"the trace)" for part in ("pack", "pairs"))
         log(f"phase 5 overlap_pairs on {row}: {timing['ms']:.3f} ms (mean of "
             f"3, CUDA events around the wrapper calls; the launch entry "
             f"alone {timing['raw_ms']:.3f} ms, the wrapper's checks alone "
-            f"{timing['checks_ms']:.3f} ms); the kernel alone "
-            f"(profiler, mean of 3) {timing['alone_ms'] or 'not measured'} "
-            f"ms ({timing['traced']} of {3 * len(calls)} launches in the "
-            f"trace); bound "
+            f"{timing['checks_ms']:.3f} ms); alone in a profiler trace "
+            f"(mean of 3): {alone}; bound "
             f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
             f"({timing['comparisons']} comparisons x {OPS_PER_COMPARISON} "
             f"int8 ops -> {timing['ops_ms']:.4f} ms; {timing['bytes']} B -> "
@@ -1286,16 +1307,20 @@ def main() -> int:
             and torch.equal(e_pair, e_mat[ia_d.long(), ib_d.long()]))
     del s_mat, e_mat
     reps = 5
-    start.record()
-    for _ in range(reps):
-        op.overlap_scores_pairs(codes, lens, ia_d, ib_d)
-    stop.record()
-    torch.cuda.synchronize()
-    phix_pair_ms = start.elapsed_time(stop) / reps
+    phix_ms = {}
+    for name, fn in (("wrapper", op.overlap_scores_pairs),
+                     ("launch entry", op.launch)):
+        start.record()
+        for _ in range(reps):
+            fn(codes, lens, ia_d, ib_d)
+        stop.record()
+        torch.cuda.synchronize()
+        phix_ms[name] = start.elapsed_time(stop) / reps
     phix_cmp = pair_comparisons(main_lens[ia_x], main_lens[ib_x], L)
     log(f"phase 5 overlap_pairs on PhiX's {len(ia_x)} candidate pairs "
-        f"(U={na}, L={L}): {phix_pair_ms:.3f} ms (mean of {reps}, CUDA "
-        f"events), against the all-pairs kernel's {kernel_ms:.3f} ms for "
+        f"(U={na}, L={L}): {phix_ms['wrapper']:.3f} ms (mean of {reps}, CUDA "
+        f"events; the launch entry alone {phix_ms['launch entry']:.3f} ms), "
+        f"against the all-pairs kernel's {kernel_ms:.3f} ms for "
         f"all {na}x{na} pairs; {phix_cmp} comparisons -> "
         f"{OPS_PER_COMPARISON * phix_cmp / PEAK_INT8_OPS * 1e3:.4f} ms at "
         f"the int8 peak; scores and ends "

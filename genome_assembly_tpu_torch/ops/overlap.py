@@ -12,8 +12,13 @@ is the first strict maximum over j (score 0 at j = 0) and its j.
 
 On a CUDA tensor it launches ``csrc/overlap_pairs.cu`` (built with ``nvcc``
 at first use), on a CPU tensor it runs ``overlap_scores_pairs_plain``.
-There is no fallback between the two. The gapped ``overlap_align_full``
-(ROADMAP A9) is not ported.
+There is no fallback between the two. One call of the launch entry
+``overlap_pairs_launch`` runs two kernels on the current stream: one packs
+every read into bit planes in a scratch tensor that the wrapper allocates
+(``scratch_words``), the other scores the pairs, a warp walking
+``PAIRS_A_WARP`` consecutive pairs and keeping the source read's planes
+while ``ia`` repeats. ``launches`` counts one a call, for both. The gapped
+``overlap_align_full`` (ROADMAP A9) is not ported.
 """
 
 from __future__ import annotations
@@ -29,9 +34,13 @@ from ..core.encoding import PAD
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "overlap_pairs.cu")
 BUILD_TIMEOUT_S = 300
-# the kernel's shared memory (three bit planes of both reads, 8 pairs a
-# block) stays under 48 KB up to this padded width
+# the kernel's shared memory (three bit planes of a's read and b's double
+# buffer, 8 warps a block) stays under 48 KB up to this padded width
 MAX_W = 4096
+# consecutive pairs a warp walks, in list order (kPairsAWarp)
+PAIRS_A_WARP = 32
+# up to this padded width (8 words a plane) the planes sit in registers
+REG_MAX_W = 256
 # cells (pairs x W x (W + 1)) the plain version holds at once: about
 # 0.8 GB of temporaries a chunk
 PLAIN_CELLS = 1 << 26
@@ -57,6 +66,19 @@ def right_align(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
                                     device=reads.device))
 
 
+def plane_stride(w: int) -> int:
+    """Words a bit plane of a read takes in the scratch: a zero word, the
+    ceil(w / 32) words of 32 positions, a zero word, padded to a multiple
+    of four so that each read's planes start on 16 bytes."""
+    return ((w + 31) // 32 + 2 + 3) // 4 * 4
+
+
+def scratch_words(n_reads: int, w: int) -> int:
+    """int32 words of the kernel's scratch: three planes and a length word
+    (length | 1 << 16 when every position below it is a base) a read."""
+    return n_reads * (3 * plane_stride(w) + 1)
+
+
 def load_kernel():
     """Build (if needed) and load the kernel library; raises RuntimeError
     with nvcc's output when the build fails."""
@@ -71,10 +93,11 @@ def load_kernel():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.overlap_pairs_launch.restype = i
         lib.overlap_pairs_launch.argtypes = [
-            vp, vp, i,           # codes (U, W), lengths, W
+            vp, vp, i, i,        # codes (U, W), lengths, U, W
             vp, vp, ll,          # ia, ib, pairs
             i, i,                # match, mismatch
             vp, vp,              # score out, end out
+            vp, ll,              # scratch, its int32 words
             vp, i,               # stream, device index
         ]
         _LIB = lib
@@ -140,22 +163,33 @@ def overlap_scores_pairs(codes: torch.Tensor, lengths: torch.Tensor,
                     ("ib", ib)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    out = launch(codes, lengths, ia, ib, match_score, mismatch)
+    if ia.numel():
+        launches += 1
+    return out
+
+
+def launch(codes, lengths, ia, ib, match_score=10, mismatch=-1):
+    """The launch entry on CUDA tensors that ``overlap_scores_pairs`` has
+    checked: allocates the outputs and the scratch and launches both
+    kernels; not counted in ``launches``. Raises when a launch fails."""
+    dev = codes.device
     n_pairs = ia.numel()
     scores = torch.empty(n_pairs, dtype=torch.int32, device=dev)
     ends = torch.empty(n_pairs, dtype=torch.int32, device=dev)
     if n_pairs == 0:
         return scores, ends
-    lib = load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.overlap_pairs_launch(
-        codes.data_ptr(), lengths.data_ptr(), codes.shape[1],
+    u, w = codes.shape
+    scratch = torch.empty(scratch_words(u, w), dtype=torch.int32, device=dev)
+    err = load_kernel().overlap_pairs_launch(
+        codes.data_ptr(), lengths.data_ptr(), u, w,
         ia.data_ptr(), ib.data_ptr(), n_pairs, match_score, mismatch,
-        scores.data_ptr(), ends.data_ptr(), stream,
+        scores.data_ptr(), ends.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device())
     if err != 0:
         raise RuntimeError(f"overlap_pairs kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
     return scores, ends
 
 

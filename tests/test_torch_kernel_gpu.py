@@ -205,12 +205,33 @@ def _pair_case(name):
     if name == "W=33, one pair a block and a ragged last block":
         c, cl = _batch(rs, 30, 33)
         return c, cl, *pairs(30, 9), 10, -1
+    if name == "sorted runs across chunk boundaries":
+        # runs of equal ia of 1 to 118 pairs, as the join emits them
+        c, cl = _batch(rs, 500, 150, rs.choice([150] * 8 + [1, 33, 149], 500))
+        ia = np.repeat(np.arange(500), rs.choice(
+            [1, 2, 31, 32, 33, 64, 76, 118], 500)).astype(np.int32)
+        return c, cl, ia, rs.randint(0, 500, len(ia)).astype(np.int32), 10, -1
+    if name == "one run, clean and N reads":
+        c, cl = _batch(rs, 200, 150, rs.randint(120, 151, 200))
+        for r in range(0, 200, 2):
+            c[r, rs.randint(0, cl[r], size=2)] = 4
+        ia = np.repeat([1, 0, 3, 2], 90).astype(np.int32)
+        return c, cl, ia, rs.randint(0, 200, len(ia)).astype(np.int32), 10, -1
+    if name in ("W=256", "W=257"):
+        w = int(name[2:])
+        c, cl = _batch(rs, 120, w, rs.choice([0, 1, w - 33, w - 1, w], 120))
+        for r in range(0, 40, 2):
+            c[r, rs.randint(0, max(cl[r], 1), size=2)] = 4
+        ia = np.sort(rs.randint(0, 120, 4000)).astype(np.int32)
+        return c, cl, ia, rs.randint(0, 120, 4000).astype(np.int32), 10, -1
     raise KeyError(name)
 
 
 PAIR_CASES = ["lengths 0/1/L-1/L, W=150", "W=1023", "internal PAD",
               "penalties 5/-4", "ia == ib and repeated pairs",
-              "W=33, one pair a block and a ragged last block"]
+              "W=33, one pair a block and a ragged last block",
+              "sorted runs across chunk boundaries",
+              "one run, clean and N reads", "W=256", "W=257"]
 
 
 @pytest.mark.gpu

@@ -2,14 +2,20 @@
 
 - the plain ``overlap_scores_pairs`` equals JAX ``ops/overlap.py::
   overlap_scores`` on the right-aligned gathered operands (ragged lengths
-  0, 1, W - 1 and W; W = 150 and 1,023; internal PAD; penalties 5/-4;
-  ia == ib and repeated pairs), and the C++ ``gc_overlap_nogap_pairs`` on
+  0, 1, W - 1 and W; W = 150, 256, 257 and 1,023; internal PAD; penalties
+  5/-4; ia == ib and repeated pairs; sorted join pairs), and the C++ ``gc_overlap_nogap_pairs`` on
   reads without an N;
 - an N inside a read: ``overlap_scores`` (and the port's pair scorer) give
   58 where the C++ scorer gives 57 (ROADMAP §C 3);
-- a numpy model of the CUDA kernel's arithmetic (bit planes, funnel
-  shifts, popcounts, the lanes' first maxima and the warp's fold) equals
-  the plain version: the kernel itself runs only on a card
+- a numpy model of the CUDA kernels' arithmetic (every read packed once
+  into bit planes with the padded stride, a warp a chunk of pairs with a's
+  planes kept while ia repeats, warp-uniform word-steps with clamped
+  funnel shifts, the one-popcount path for reads without an N beside the
+  two-popcount path, the lanes' first maxima and the warp's fold) equals
+  the plain version, also on sorted pairs of the port's own join, on one
+  run mixing clean reads and reads with an N, and at W = 256 and 257; the
+  same model with the fast path forced on reads with an N must differ
+  (a negative control). The kernels run only on a card
   (tests/test_torch_kernel_gpu.py);
 - ``score_pairs``' sparse route on CPU tensors (the plain version, with
   DENSE_MAX_U set low) equals the JAX package's route.
@@ -81,6 +87,23 @@ def _case(name):
         ia = np.r_[np.arange(30), [3] * 10, [5, 5, 5]].astype(np.int32)
         ib = np.r_[np.arange(30), [7] * 10, [5, 9, 5]].astype(np.int32)
         return codes, lens, ia, ib, 10, -1
+    elif name == "join pairs, sorted runs":
+        return (*_join_window(), 10, -1)
+    elif name == "one run, clean and N reads":
+        # a clean source read, then one with an N, each against a run of
+        # targets that alternate clean and N reads, across a chunk boundary
+        codes, lens = _batch(rs, 40, 150, rs.randint(120, 151, size=40))
+        _with_n(rs, codes, lens)            # N in the even reads
+        ib = rs.permutation(np.r_[1:40])[:37]
+        ia = np.r_[[1] * 37, [0] * 37].astype(np.int32)
+        return codes, lens, ia, np.r_[ib, ib].astype(np.int32), 10, -1
+    elif name in ("W=256", "W=257"):
+        w = int(name[2:])
+        codes, lens = _batch(rs, 24, w, rs.choice([0, 1, w - 33, w - 1, w],
+                                                  24))
+        _with_n(rs, codes[:8], lens[:8])
+        ia = np.sort(rs.randint(0, 24, 45)).astype(np.int32)
+        return codes, lens, ia, rs.randint(0, 24, 45).astype(np.int32), 10, -1
     else:
         raise KeyError(name)
     u = len(codes)
@@ -89,8 +112,47 @@ def _case(name):
 
 
 CASES = ["ragged W=150", "lengths 0, 1, W-1, W", "wide W=1023",
-         "internal PAD", "penalties 5/-4", "ia == ib and repeated pairs"]
-PAD_FREE = [c for c in CASES if c != "internal PAD"]
+         "internal PAD", "penalties 5/-4", "ia == ib and repeated pairs",
+         "join pairs, sorted runs", "one run, clean and N reads", "W=256",
+         "W=257"]
+PAD_FREE = [c for c in CASES if c not in (
+    "internal PAD", "one run, clean and N reads", "W=256", "W=257")]
+# the pairs of a case that the numpy model of the kernel runs (it is a
+# Python loop): the first 60, or the whole list
+MODEL_PAIRS = {"join pairs, sorted runs": None,
+               "one run, clean and N reads": None}
+
+
+def _runs(ia):
+    """(start, stop) of each run of equal ia."""
+    starts = np.r_[0, np.flatnonzero(np.diff(ia)) + 1]
+    return starts, np.r_[starts[1:], len(ia)]
+
+
+def _join_window(span=160):
+    """Reads of 100-150 bases from a genome of 300 random bases and 500 of
+    two letters, the port's k = 4 join on them (pairs sorted by (ia, ib)),
+    and the first window of `span` pairs from a run start that holds a run
+    longer than a chunk, a run of one and a run across a chunk boundary."""
+    r = random.Random(2)
+    genome = ("".join(r.choice("ACGT") for _ in range(300))
+              + "".join(r.choice("AC") for _ in range(500)))
+    reads = []
+    for _ in range(1200):
+        start, n = r.randrange(len(genome) - 100), r.randint(100, 150)
+        reads.append(genome[start:start + n])
+    unique, _ = port_build.dedup_reads(reads)
+    ia, ib = port_build.candidate_pairs_arrays(unique, 4, device="cpu")
+    codes, lens = encode_batch(unique, align="left")
+    chunk = op.PAIRS_A_WARP
+    for lo in _runs(ia)[0]:
+        starts, stops = _runs(ia[lo:lo + span])
+        whole = stops < min(span, len(ia) - lo)
+        size = (stops - starts)[whole]
+        across = (starts // chunk != (stops - 1) // chunk)[whole]
+        if (size > chunk).any() and (size == 1).any() and across.any():
+            return codes, lens, ia[lo:lo + span], ib[lo:lo + span]
+    raise AssertionError("no window with the runs the case needs")
 
 
 def _port(codes, lens, ia, ib, ms=10, mm=-1):
@@ -144,79 +206,166 @@ def test_internal_n_gets_a_fourth_answer():
     assert int(np.asarray(s_xla)[0, 0]) == 57
 
 
-def _funnel_r(lo: int, hi: int, sh: int) -> int:
-    return ((hi << 32 | lo) >> sh) & 0xFFFFFFFF
+def _funnel_rc(lo, hi, sh):
+    """__funnelshift_rc: (hi:lo) >> min(sh, 32), the low 32 bits."""
+    return (((hi << np.uint64(32)) | lo) >> np.minimum(sh, 32).astype(
+        np.uint64)) & np.uint64(0xFFFFFFFF)
 
 
-def _planes(row, n, nw):
-    """Three bit planes (bit 0, bit 1, is a base) of nw + 2 words, zero
-    words first and last, as the kernel's pack_read builds them."""
-    out = [[0] * (nw + 2) for _ in range(3)]
-    for pos in range(min(n, len(row))):
-        c = int(row[pos])
-        if 0 <= c < 4:
-            w, t = divmod(pos, 32)
-            out[0][1 + w] |= (c & 1) << t
-            out[1][1 + w] |= ((c >> 1) & 1) << t
-            out[2][1 + w] |= 1 << t
-    return out
+def _popc(x):
+    return np.bitwise_count(x).astype(np.int64)
 
 
-def kernel_model(codes, lens, ia, ib, ms=10, mm=-1):
-    """The arithmetic of csrc/overlap_pairs.cu, pair by pair, lane by lane."""
-    w_pad = codes.shape[1]
+CLEAN_BIT = 1 << 16
+
+
+def pack_model(codes, lens):
+    """overlap_pairs_kernel_pack: (U, 3, plane_stride) uint64 planes (bit 0
+    of the code, bit 1, a base inside the length; word w of a plane at
+    1 + w, zero words before, after and in the padding) and the length
+    words (length | CLEAN_BIT when every position below it is a base)."""
+    u, w_pad = codes.shape
     nw = (w_pad + 31) // 32
-    scores, ends = [], []
-    for ua, ub in zip(ia, ib):
-        la, lb = int(lens[ua]), int(lens[ub])
-        a = _planes(codes[ua], la, nw)
-        b = _planes(codes[ub], lb, nw)
-        w_last = (la - 1) >> 5
-        lanes = []
-        for lane in range(32):
-            best_s, best_j = 0, 0
-            for j in range(lane + 1, lb + 1, 32):
-                o = j - la
-                w0 = (-o) >> 5 if o < 0 else 0
-                base = 32 * w0 + o
-                assert base >= -31
-                wi, sh = base >> 5, base & 31
-                prev = [b[q][1 + wi] for q in range(3)]
-                matches = valid = 0
-                for w in range(w0, w_last + 1):
-                    assert wi + 1 <= nw
-                    nxt = [b[q][2 + wi] for q in range(3)]
-                    blo, bhi, bv = (_funnel_r(prev[q], nxt[q], sh)
-                                    for q in range(3))
-                    both = a[2][1 + w] & bv
-                    differ = (a[0][1 + w] ^ blo) | (a[1][1 + w] ^ bhi)
-                    matches += bin(both & ~differ & 0xFFFFFFFF).count("1")
-                    valid += bin(both).count("1")
-                    prev = nxt
-                    wi += 1
-                s = mm * valid + (ms - mm) * matches
-                if s > best_s:
-                    best_s, best_j = s, j
-            lanes.append((best_s, best_j))
-        for off in (16, 8, 4, 2, 1):
-            # __shfl_down_sync: lanes past 31 - off read their own value
-            lanes = [min(lanes[t], lanes[t + off] if t + off < 32 else lanes[t],
-                         key=lambda sj: (-sj[0], sj[1]))
-                     for t in range(32)]
-        scores.append(lanes[0][0])
-        ends.append(lanes[0][1])
-    return np.array(scores, np.int32), np.array(ends, np.int32)
+    ps = op.plane_stride(w_pad)
+    assert ps % 4 == 0 and ps >= nw + 2
+    assert op.scratch_words(u, w_pad) == u * (3 * ps + 1)
+    c = np.full((u, 32 * nw), 4, np.int64)
+    c[:, :w_pad] = codes
+    inside = np.arange(32 * nw)[None, :] < np.asarray(lens)[:, None]
+    base = inside & (c >= 0) & (c < 4)
+    bits = np.stack([base & (c & 1 == 1), base & (c & 2 == 2), base], 1)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    words = (bits.reshape(u, 3, nw, 32).astype(np.uint64) * weights).sum(
+        -1, dtype=np.uint64)
+    planes = np.zeros((u, 3, ps), np.uint64)
+    planes[:, :, 1:1 + nw] = words
+    clean = ~(inside & ~base).any(1)
+    return planes, np.asarray(lens, np.int64) | np.where(clean, CLEAN_BIT, 0)
+
+
+def _score_model(a, b, la, lb, clean, nw, ms, mm):
+    """One pair, the 32 lanes as a vector: lane t takes the ends
+    j = la - 32 k - t; step k faces a's word w with b's words w - k - 1 and
+    w - k (at plane index w - k and w - k + 1). The register instances
+    (nw <= REG_MAX_W / 32) shift b's words into the lane's place once a
+    pair and run every step to a's word nw - 1 (a's words past its length
+    are zero); the generic instance shifts in each step and stops at a's
+    last word."""
+    t = np.arange(32)
+    sh = 32 - t
+    low = (np.uint64(0xFFFFFFFF) << t.astype(np.uint64)) & np.uint64(
+        0xFFFFFFFF)
+    regs = nw <= op.REG_MAX_W // 32
+    if regs:                                # bs[q][i]: b's words i - 1, i
+        bs = [[_funnel_rc(b[q, i], b[q, i + 1], sh) for i in range(nw + 1)]
+              for q in range(3)]
+    w_last = (la - 1) >> 5
+    k_lo = -((lb - la + 31) >> 5)
+    thr = np.ones(32, np.int64)             # j = 0 scores 0
+    best_j = np.zeros(32, np.int64)
+    for k in range(k_lo, w_last + 1):
+        assert -nw <= k < max(nw, 1)        # the register template's range
+        matches = np.zeros(32, np.int64)
+        valid = np.zeros(32, np.int64)
+        for w in range(max(k, 0), nw if regs else w_last + 1):
+            i = w - k                       # b's word w - k - 1 at [i]
+            if regs:
+                if i > nw:                  # faces only b's zero words
+                    continue
+                blo, bhi, bv = bs[0][i], bs[1][i], bs[2][i]
+            else:
+                assert 0 <= i and i + 1 <= nw + 1 and 1 + w <= nw
+                blo, bhi, bv = (_funnel_rc(b[q, i], b[q, i + 1], sh)
+                                for q in range(3))
+            av = a[2, 1 + w]
+            mask = av & low if w == k else np.full(32, av)
+            differ = (a[0, 1 + w] ^ blo) | (a[1, 1 + w] ^ bhi)
+            if clean:
+                matches += _popc(mask & ~differ)
+            else:
+                both = mask & bv
+                matches += _popc(both & ~differ)
+                valid += _popc(both)
+        jm1 = la - 1 - t - 32 * k           # ends met in decreasing order
+        if clean:
+            valid = np.minimum(la, jm1 + 1)
+        s = mm * valid + (ms - mm) * matches
+        take = ((jm1 >= 0) & (jm1 < lb)) & (s >= thr)
+        thr = np.where(take, s, thr)
+        best_j = np.where(take, jm1 + 1, best_j)
+    best_s = np.where(best_j > 0, thr, 0)
+    s = best_s.max()                        # the warp's fold
+    return s, best_j[best_s == s].min()
+
+
+def kernel_model(codes, lens, ia, ib, ms=10, mm=-1, force_clean=False):
+    """The arithmetic of csrc/overlap_pairs.cu: the reads packed once, then
+    a warp a chunk of PAIRS_A_WARP pairs in list order, reloading a's
+    planes only when ia changes. Returns (scores, ends, a's loads).
+    force_clean takes the one-popcount path for every pair (a negative
+    control: wrong where a read has an N)."""
+    planes, meta = pack_model(codes, lens)
+    nw = (codes.shape[1] + 31) // 32
+    scores = np.zeros(len(ia), np.int32)
+    ends = np.zeros(len(ia), np.int32)
+    loads = 0
+    for p0 in range(0, len(ia), op.PAIRS_A_WARP):
+        cur_a = -1
+        for p in range(p0, min(p0 + op.PAIRS_A_WARP, len(ia))):
+            if ia[p] != cur_a:
+                cur_a = ia[p]
+                a, ma = planes[cur_a].copy(), int(meta[cur_a])
+                loads += 1
+            b, mb = planes[ib[p]], int(meta[ib[p]])
+            clean = force_clean or bool(ma & mb & CLEAN_BIT)
+            scores[p], ends[p] = _score_model(
+                a, b, ma & 0xFFFF, mb & 0xFFFF, clean, nw, ms, mm)
+    return scores, ends, loads
+
+
+def _segments(ia):
+    """Runs of equal ia cut at chunk boundaries: a's loads in the kernel."""
+    p = np.arange(len(ia))
+    return int(((p % op.PAIRS_A_WARP == 0)
+                | (np.r_[-1, ia[:-1]] != ia)).sum())
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_arithmetic_matches_plain(case):
     codes, lens, ia, ib, ms, mm = _case(case)
-    keep = slice(0, 60)                     # the model is a Python loop
+    keep = slice(0, MODEL_PAIRS.get(case, 60))
     ia, ib = ia[keep], ib[keep]
-    got = kernel_model(codes, lens, ia, ib, ms, mm)
+    *got, loads = kernel_model(codes, lens, ia, ib, ms, mm)
     want = _port(codes, lens, ia, ib, ms, mm)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+    assert loads == _segments(ia)
+
+
+def test_join_case_holds_the_runs_it_names():
+    """The join case's pairs: sorted, a run longer than a chunk, a run of
+    one and a run across a chunk boundary; a's planes are loaded once a
+    run and chunk, so far fewer times than there are pairs."""
+    _, _, ia, ib, _, _ = _case("join pairs, sorted runs")
+    assert (np.diff(ia) >= 0).all()
+    starts, stops = _runs(ia)
+    size = stops - starts
+    chunk = op.PAIRS_A_WARP
+    assert (size > chunk).any() and (size[:-1] == 1).any()
+    assert (starts // chunk != (stops - 1) // chunk).any()
+    assert _segments(ia) * 4 < len(ia)
+
+
+def test_fast_path_on_reads_with_n_differs_from_plain():
+    """Negative control: the one-popcount path taken where a read has an
+    N inside its length must give other scores than the plain version."""
+    codes, lens, ia, ib, ms, mm = _case("internal PAD")
+    ia, ib = ia[:60], ib[:60]
+    want = _port(codes, lens, ia, ib, ms, mm)
+    forced = kernel_model(codes, lens, ia, ib, ms, mm, force_clean=True)
+    assert not np.array_equal(forced[0], want[0])
+    clean = kernel_model(codes, lens, ia, ib, ms, mm)
+    np.testing.assert_array_equal(clean[0], want[0])
 
 
 def _reads(seed, n=90, l=14, genome_len=260):
