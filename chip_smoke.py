@@ -61,7 +61,23 @@ Phases, each printed with the elapsed seconds as it ends:
    each alone in a profiler trace, with the launches the trace saw), bound,
    the plain version's and the C++ engine's time,
    and the device join's time; then on PhiX's candidate pairs beside the
-   all-pairs kernel, whose gathered scores and ends it must equal.
+   all-pairs kernel, whose gathered scores and ends it must equal;
+6. the sweep path, on the card, its output in a temporary directory:
+   6a ``run_for_params`` at phase 4's configuration, 3 iterations (the
+   reference's default is 10), its aggregate equal to the JAX package's
+   (SWEEP_EXPECTED), iteration 1 equal to EXPECTED, 3 launches of the
+   all-pairs and of the full-width SW kernel, and device memory after
+   iteration 3 within 2 MiB of that after iteration 1; 6b
+   ``run_experiments`` on the CLI's ``--quick`` grids (12 configs), its 12
+   CSV files byte-equal to the JAX package's (QUICK_EXPECTED); 6c
+   ``run_simulations_parallel`` with 2 spawned workers on experiment 1's
+   four configs, equal to sequential runs from copies of the same rngs;
+   6d the CLI in subprocesses: ``assemble`` at phase 4's configuration
+   with ``--profile``, its measures equal to EXPECTED and its trace naming
+   the all-pairs and the full-width SW kernel (the device busy time and
+   idle share over ``test_assembly`` are read from it), and
+   ``experiments --quick --no-plots``, which must write the 12 CSVs.
+   Prints which of pandas, matplotlib and joblib are installed here.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -170,6 +186,71 @@ LONG90_EXPECTED = {
             "Mismatch Rate Genome Level": 0.79492,
         },
     },
+}
+
+# Phase 6a: run_for_params at phase 4's configuration, 3 iterations from
+# random.Random(SEED) and np.random.RandomState(SEED); the JAX package's
+# "<key> avg/std/raw" columns (recorded on the CPU; tests/test_torch_smoke.py
+# re-runs the JAX package and asserts them).
+SWEEP_ITERATIONS = 3
+SWEEP_EXPECTED = {
+    "num_reads avg": 10000.0, "read_length avg": 150.0,
+    "error_prob avg": 0.01, "k avg": 5.0,
+    "expected_coverage avg": 278.4998143334571, "num_iterations avg": 3.0,
+    "Number of Contigs avg": 2692.6666666666665, "Genome Coverage avg": 1.0,
+    "N50 avg": 172.0,
+    "Mismatch Rate Aligned Regions avg": 0.9890456739695507,
+    "Mismatch Rate Genome Level avg": 0.9890456739695507,
+    "num_reads std": 0.0, "read_length std": 0.0, "error_prob std": 0.0,
+    "k std": 0.0, "expected_coverage std": 0.0, "num_iterations std": 0.0,
+    "Number of Contigs std": 44.25180473406957, "Genome Coverage std": 0.0,
+    "N50 std": 0.816496580927726,
+    "Mismatch Rate Aligned Regions std": 0.006730252120457415,
+    "Mismatch Rate Genome Level std": 0.006730252120457415,
+    "num_reads raw": [10000, 10000, 10000], "read_length raw": [150, 150, 150],
+    "error_prob raw": [0.01, 0.01, 0.01], "k raw": [5, 5, 5],
+    "expected_coverage raw": [278.4998143334571] * 3,
+    "num_iterations raw": [3, 3, 3],
+    "Number of Contigs raw": [2698, 2636, 2744],
+    "Genome Coverage raw": [1.0, 1.0, 1.0], "N50 raw": [172, 173, 171],
+    "Mismatch Rate Aligned Regions raw": [
+        0.9834756776828816, 0.9851466765688823, 0.9985146676568882],
+    "Mismatch Rate Genome Level raw": [
+        0.9834756776828816, 0.9851466765688823, 0.9985146676568882],
+}
+# 6a fails when device memory after the last iteration exceeds that after
+# the first by more than this
+SWEEP_MEMORY_SLACK = 2 << 20
+
+# Phase 6b: sha256 of each CSV that run_experiments writes on the CLI's
+# --quick grids with one iteration, random.Random(SEED) and
+# np.random.RandomState(SEED) passed through run_kw and no plots (the JAX
+# package on the CPU; tests/test_torch_smoke.py re-runs it).
+QUICK_EXPECTED = {
+    "experiment_const_coverage/C_0.928/results.csv":
+        "2ae0c1106b5be15f4e56a37476f4fa3b16be7b59177eaae79a8f5675a07858ba",
+    "experiment_const_coverage/C_0.928/summary.csv":
+        "97aaec9c3a4a83329b2d7521b84ac9789f1a8476b129bc75e0b7367b88904ba5",
+    "experiment_const_coverage/C_2/results.csv":
+        "4b150111a95e6ec23559c34cfcfa783b219ffb641ad803fab9647f34736ec979",
+    "experiment_const_coverage/C_2/summary.csv":
+        "0d381b8983ce0f0803470098c638ac9d89a9b1fcf4a94ca5c593dd1b9381f17e",
+    "experiment_varying_l/fixed_n_100/results.csv":
+        "52deaf5c1277f4eec3b33a1ed7d5d879973d64912b1a32e23b3b59865db4d490",
+    "experiment_varying_l/fixed_n_100/summary.csv":
+        "959e5cf98adefa3f010dfc7740de1e4a8554e795e5fae9f5fa0cc2c145d92b2b",
+    "experiment_varying_l/fixed_n_200/results.csv":
+        "1d79740c7cb8427f8617c158991d6f9b727a885af09b02ede4030c74392bbb45",
+    "experiment_varying_l/fixed_n_200/summary.csv":
+        "47cae7813808cfacca90bce4475c58f996da056716e7d5ed55cbcd97ca97d6df",
+    "experiment_varying_n/fixed_l_100/results.csv":
+        "09177c93c257c0bd6bb2b3f52337480390a87e8e3b93af48faf4b012732a3bcf",
+    "experiment_varying_n/fixed_l_100/summary.csv":
+        "5ba47ccf29c30ebca2059794d1db47f0e8b00246058d2f41faeecfb82b248374",
+    "experiment_varying_n/fixed_l_50/results.csv":
+        "16fef2b222e71dabed92789018a3f0ba4e955e18762172c7e1a4f91899eb09af",
+    "experiment_varying_n/fixed_l_50/summary.csv":
+        "2a27823bcbf5762ce1ddf5d4635a9434595f41268601176dd20a66ba92713166",
 }
 
 KERNEL_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_allpairs.cu"
@@ -766,6 +847,278 @@ def time_sw(kind: str, calls, reps: int, sm_clock_hz: float,
     }
 
 
+def sweep_params(genome: str) -> dict:
+    """Phase 6a's config at phase 4's configuration, as the harness builds
+    one."""
+    return {"num_reads": NUM_READS, "read_length": READ_LENGTH,
+            "error_prob": ERROR_PROB, "k": K, "reference_genome": genome,
+            "expected_coverage": NUM_READS * READ_LENGTH / len(genome),
+            "experiment_name": "sweep", "num_iterations": SWEEP_ITERATIONS,
+            "contigs": None}
+
+
+def csv_hashes(root: str) -> dict:
+    """sha256 of every CSV under `root`, by its path relative to `root`."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".csv"):
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root).replace(os.sep, "/")] = (
+                        hashlib.sha256(f.read()).hexdigest())
+    return out
+
+
+def device_busy(trace: dict, span: str = "test_assembly"):
+    """(span µs, device busy µs, µs by device event name) of a
+    torch.profiler Chrome trace: busy is the union of the card's kernel,
+    copy and memset intervals clipped to the first user annotation named
+    `span`; the last maps each such event's name to its summed clipped
+    time."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    marks = [e for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == span]
+    if not marks:
+        raise ValueError(f"the trace holds no {span!r} annotation")
+    t0, t1 = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
+    device = [(max(e["ts"], t0), min(e["ts"] + e["dur"], t1), e["name"])
+              for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end, by_name = 0.0, t0, {}
+    for a, b, name in sorted(device):
+        by_name[name] = by_name.get(name, 0.0) + max(b - a, 0.0)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return t1 - t0, busy, by_name
+
+
+def worker_ready() -> float:
+    """Run in a spawned worker: import the port, open a CUDA context, load
+    the kernel libraries and the C++ engine; the wall clock when done."""
+    import torch
+
+    from genome_assembly_tpu_torch.native import graphcore
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    torch.zeros(1, device="cuda")
+    oa.load_kernel()
+    sw.load_kernel()
+    graphcore.load()
+    return time.time()
+
+
+def sweep_path(log, genome: str, card_line: str) -> bool:
+    """Phase 6: the sweep runners, the harness, the process pool and the
+    CLI on the card (see the module docstring); True when every check
+    passed."""
+    import copy
+    import importlib.metadata
+    import importlib.util
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.__main__ import quick_grids
+    from genome_assembly_tpu_torch.experiments import harness, runner
+    from genome_assembly_tpu_torch.ops import overlap as op
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    def reset_counts():
+        oa.launches = op.launches = 0
+        sw.full_width_launches = sw.banded_launches = 0
+
+    t6 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    found = {m: (importlib.metadata.version(m)
+                 if importlib.util.find_spec(m) else None)
+             for m in ("pandas", "matplotlib", "joblib")}
+    log(f"phase 6 host libraries here (version, null: absent): "
+        f"{json.dumps(found)}")
+
+    # ---- 6a: run_for_params, 3 iterations --------------------------------
+    params = sweep_params(genome)
+    iterations = []
+    inner = runner.run_simulations
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        iterations.append((time.perf_counter() - t,
+                           torch.cuda.memory_allocated(dev)))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    runner.run_simulations = timed
+    reset_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            agg = runner.run_for_params(
+                params, path=tmp, rng=random.Random(SEED),
+                np_rng=np.random.RandomState(SEED), device="cuda")
+    finally:
+        runner.run_simulations = inner
+    launches = (oa.launches, sw.full_width_launches, sw.banded_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, (wall, mem) in enumerate(iterations, 1):
+        log(f"phase 6a iteration {i}: {wall:.2f}s, memory allocated after "
+            f"it {mem} B")
+    log(f"phase 6a run_for_params: memory allocated before "
+        f"{before} B, peak {peak} B; launches all-pairs {launches[0]}, SW "
+        f"full width {launches[1]}, banded {launches[2]}")
+    got = {k: v for k, v in agg.items()
+           if k.endswith((" avg", " std", " raw"))}
+    first = {m: agg[f"{m} raw"][0] for m in EXPECTED["measures"]}
+    growth = iterations[-1][1] - iterations[0][1]
+    if got != SWEEP_EXPECTED or any(agg[k] != v for k, v in params.items()):
+        log(f"phase 6a FAILED: aggregate differs from the JAX package's:\n"
+            f"  got      {got}\n  expected {SWEEP_EXPECTED}")
+        return False
+    if first != EXPECTED["measures"]:
+        log(f"phase 6a FAILED: iteration 1 {first} != EXPECTED")
+        return False
+    if launches[:2] != (SWEEP_ITERATIONS, SWEEP_ITERATIONS):
+        log("phase 6a FAILED: not one all-pairs and one full-width SW "
+            "launch an iteration")
+        return False
+    if growth > SWEEP_MEMORY_SLACK:
+        log(f"phase 6a FAILED: memory grew {growth} B from iteration 1 to "
+            f"{len(iterations)}")
+        return False
+    log(f"phase 6a aggregate == JAX package's, iteration 1 == EXPECTED, "
+        f"memory after iteration {len(iterations)} - after iteration 1 = "
+        f"{growth} B")
+
+    # ---- 6b: run_experiments on the --quick grids ------------------------
+    reset_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            CallRecorder(harness, "run_simulations_parallel") as sweeps:
+        harness.run_experiments(
+            file_path=GENOME, path_to_save_csvs=os.path.join(tmp, "results"),
+            path_to_save_plots=os.path.join(tmp, "plots"), num_iterations=1,
+            make_plots=False, grids=quick_grids(len(genome)),
+            rng=random.Random(SEED), np_rng=np.random.RandomState(SEED),
+            device="cuda")
+        hashes = csv_hashes(os.path.join(tmp, "results"))
+    configs = sum(len(args[0]) for args, _ in sweeps.calls)
+    log(f"phase 6b run_experiments --quick: {time.perf_counter() - t:.2f}s, "
+        f"{configs} configs, {len(hashes)} CSVs, launches all-pairs "
+        f"{oa.launches}, SW full width {sw.full_width_launches}")
+    if oa.launches < 1 or sw.full_width_launches < 1:
+        log("phase 6b FAILED: the sweep did not launch both kernels")
+        return False
+    if hashes != QUICK_EXPECTED:
+        bad = sorted(k for k in QUICK_EXPECTED.keys() | hashes.keys()
+                     if hashes.get(k) != QUICK_EXPECTED.get(k))
+        log(f"phase 6b FAILED: CSVs differ from the JAX package's: {bad}")
+        return False
+    log("phase 6b every CSV == JAX package's")
+
+    # ---- 6c: run_simulations_parallel, 2 spawned workers -----------------
+    exp1 = [p for args, _ in sweeps.calls[:2] for p in args[0]]
+    rng0, np_rng0 = random.Random(SEED), np.random.RandomState(SEED)
+    ctx = multiprocessing.get_context("spawn")
+    t = time.time()
+    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool:
+        ready = [f.result() - t for f in
+                 [pool.submit(worker_ready) for _ in range(2)]]
+    log(f"phase 6c a spawned worker's start-up (import, CUDA context, "
+        f"kernel libraries): {', '.join(f'{r:.2f}s' for r in ready)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        pooled = runner.run_simulations_parallel(
+            exp1, path=tmp, n_jobs=2, rng=rng0, np_rng=np_rng0,
+            device="cuda")
+        pool_s = time.perf_counter() - t
+        reset_counts()
+        t = time.perf_counter()
+        alone = [runner.run_for_params(
+            p, path=tmp, rng=copy.deepcopy(rng0),
+            np_rng=copy.deepcopy(np_rng0), device="cuda") for p in exp1]
+        alone_s = time.perf_counter() - t
+    log(f"phase 6c {len(exp1)} configs: pool of 2 {pool_s:.2f}s (workers' "
+        f"launches are not counted here), sequential {alone_s:.2f}s "
+        f"(launches all-pairs {oa.launches}, SW full width "
+        f"{sw.full_width_launches})")
+    if oa.launches < 1 or sw.full_width_launches < 1:
+        log("phase 6c FAILED: the sequential runs did not launch both "
+            "kernels")
+        return False
+    if pooled != alone:
+        log("phase 6c FAILED: the pool's results differ from the sequential "
+            "runs'")
+        return False
+    log("phase 6c pool == sequential runs from copies of the rngs")
+
+    # ---- 6d: the CLI in subprocesses --------------------------------------
+    cli = [sys.executable, "-m", "genome_assembly_tpu_torch"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [*cli, "assemble", "--n", str(NUM_READS), "--l", str(READ_LENGTH),
+             "--p", str(ERROR_PROB), "--k", str(K), "--seed", str(SEED),
+             "--trace", "--profile", os.path.join(tmp, "trace"),
+             "--plots", os.path.join(tmp, "plots")],
+            capture_output=True, text=True, timeout=600)
+        assemble_s = time.perf_counter() - t
+        lines = proc.stdout.splitlines()
+        want = [f"contigs: {EXPECTED['contigs']}"] + [
+            f"{k}: {v}" for k, v in EXPECTED["measures"].items()]
+        trace_path = os.path.join(tmp, "trace", "trace.json")
+        trace_bytes = (os.path.getsize(trace_path)
+                       if os.path.exists(trace_path) else None)
+        log(f"phase 6d CLI assemble --profile: exit {proc.returncode}, "
+            f"{assemble_s:.2f}s, trace {trace_bytes} B")
+        for line in lines[len(want):]:
+            if line.strip():
+                log(f"phase 6d stage {line}")
+        if proc.returncode != 0 or lines[:len(want)] != want:
+            log(f"phase 6d FAILED: the CLI printed {lines[:len(want)]}, "
+                f"expected {want}\n{proc.stderr[-4000:]}")
+            return False
+        if trace_bytes is None:
+            log("phase 6d FAILED: the CLI wrote no trace.json")
+            return False
+        with open(trace_path) as f:
+            span_us, busy_us, by_name = device_busy(json.load(f))
+        traced = {k: any(k in name for name in by_name)
+                  for k in ("overlap_allpairs_kernel", "sw_kernel<false")}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"phase 6d trace: test_assembly span {span_us / 1e6:.3f}s, device "
+            f"busy (kernels, copies, memsets) {busy_us / 1e6:.4f}s, idle "
+            f"share {1 - busy_us / span_us:.4f}; {len(by_name)} device "
+            f"event names, named: {json.dumps(traced)}; most device time: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
+            + f"; card {card_line}")
+        if not all(traced.values()):
+            log("phase 6d FAILED: the trace does not name both kernels")
+            return False
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [*cli, "experiments", "--quick", "--iterations", "1",
+             "--no-plots", "--results", os.path.join(tmp, "results"),
+             "--plots", os.path.join(tmp, "plots")],
+            capture_output=True, text=True, timeout=600)
+        written = csv_hashes(os.path.join(tmp, "results"))
+        log(f"phase 6d CLI experiments --quick --no-plots: exit "
+            f"{proc.returncode}, {time.perf_counter() - t:.2f}s, "
+            f"{len(written)} CSVs")
+        if proc.returncode != 0 or written.keys() != QUICK_EXPECTED.keys():
+            log(f"phase 6d FAILED: the sweep CLI\n{proc.stderr[-4000:]}")
+            return False
+    log(f"phase 6 sweep path passed: {time.perf_counter() - t6:.1f}s")
+    return True
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1344,6 +1697,8 @@ def main() -> int:
                      >= pair_total["bytes_ms"] else "bytes"),
         "library_ms": None,
     })
+    if not sweep_path(log, genome, card_line):
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed; wall {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,20 @@ Module paths and public names mirror the JAX package:
 - ``models``      the overlap-graph assembly pipeline (exact-parity and
                   fast layouts)
 - ``metrics``     assembly quality measures (N50, coverage, mismatch rates)
-- ``experiments`` ``test_assembly``, one assemble-and-measure run
+- ``experiments`` ``test_assembly`` (one assemble-and-measure run), the
+                  sweep runners (``run_for_params``,
+                  ``run_simulations_parallel``: spawned workers sharing
+                  the card) and the three-experiment harness
+- ``persist``     results.csv / summary.csv, written and read with the
+                  standard library, byte- and record-equal to the JAX
+                  package's pandas route
+- ``plots``       the matplotlib and pandas plot suite, imported only when
+                  plots are drawn
+- ``utils``       stage timing; ``utils.tracing.profile``, a
+                  torch.profiler trace of a block
 - ``native``      the C++ graph engine (ctypes), built at first use
+- ``__main__``    the CLI: ``python -m genome_assembly_tpu_torch
+                  assemble|experiments ... [--device cuda|cpu]``
 
 Public entry points take ``device="cuda"`` by default and raise when no
 card is present; pass ``device="cpu"`` to run on the host.

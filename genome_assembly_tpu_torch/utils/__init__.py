@@ -1,3 +1,3 @@
-from .tracing import Tracer, global_tracer, stage
+from .tracing import Tracer, global_tracer, profile, stage
 
-__all__ = ["Tracer", "global_tracer", "stage"]
+__all__ = ["Tracer", "global_tracer", "profile", "stage"]

@@ -1,8 +1,10 @@
-"""Structured stage timing.
+"""Structured stage timing and profiling.
 
 - `stage(name)` — context-manager stage timer feeding a global registry;
 - `Tracer` — per-run collector with an item-throughput counter and a
-  report() string.
+  report() string;
+- `profile(path)` — torch.profiler trace of a block, written as a Chrome
+  trace.
 
 Stage times are host wall-clock. A stage that ends in a copy to the host
 (``score.pairs`` ends in one) includes the device work it waited for.
@@ -11,9 +13,13 @@ Stage times are host wall-clock. A stage that ends in a copy to the host
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -77,3 +83,32 @@ def stage(name: str, items: int = 0):
     """Module-level stage timer on the global tracer."""
     with _GLOBAL.stage(name, items=items):
         yield _GLOBAL
+
+
+@contextlib.contextmanager
+def profile(path: str | None = None, enabled: bool = True):
+    """Trace the block with ``torch.profiler``: CPU activity, and the card's
+    kernels and copies when a card is present. On exit the trace is written
+    as ``path``/trace.json (Chrome trace format; chrome://tracing or
+    Perfetto), ``path`` defaulting to ga_tpu_trace in the temporary
+    directory. Yields the profiler. With ``enabled=False`` it does
+    nothing."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    if path is None:
+        path = os.path.join(tempfile.gettempdir(), "ga_tpu_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = torch_profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        os.makedirs(path, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(path, "trace.json"))

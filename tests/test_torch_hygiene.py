@@ -2,6 +2,9 @@
 
 - every module of the port, and chip_smoke.py, imports with JAX and the JAX
   package blocked, and none of their sources imports either;
+- the sweep path (runner, harness, persist, the CLI) imports and runs a
+  tiny sweep without plots with pandas, matplotlib and joblib blocked, as
+  on the card machine;
 - the entry points default to the card and raise without one;
 - a failed build of the C++ engine or of the kernel raises; nothing falls
   back.
@@ -64,6 +67,41 @@ def test_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_sweep_path_runs_without_pandas_matplotlib_and_joblib(tmp_path):
+    r = random.Random(4)
+    fasta = tmp_path / "toy.fasta"
+    fasta.write_text(">toy\n" + "".join(r.choice("ACGT") for _ in range(300))
+                     + "\n")
+    results = tmp_path / "results"
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'genome_assembly_tpu', 'pandas', 'matplotlib',"
+        " 'joblib'):\n"
+        "    sys.modules[name] = None\n"
+        "import genome_assembly_tpu_torch.experiments.runner\n"
+        "import genome_assembly_tpu_torch.experiments.harness\n"
+        "from genome_assembly_tpu_torch import persist\n"
+        "from genome_assembly_tpu_torch.__main__ import main\n"
+        f"assert main(['experiments', '--fasta', {str(fasta)!r}, '--quick', "
+        "'--iterations', '1', '--no-plots', '--jobs', '1', '--device', "
+        f"'cpu', '--results', {str(results)!r}, '--plots', "
+        f"{str(tmp_path / 'plots')!r}]) == 0\n"
+        f"rows = persist.load_and_combine_results("
+        f"{str(results / 'experiment_varying_l')!r})\n"
+        "assert len(rows) == 4 and isinstance(rows[0]['N50 raw'], list)\n"
+        "assert not any(sys.modules.get(m) for m in ('pandas', 'matplotlib',"
+        " 'joblib'))\n"
+        "print('swept')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "swept" in proc.stdout
+    csvs = [f for _, _, files in os.walk(results) for f in files]
+    assert len(csvs) == 12
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():

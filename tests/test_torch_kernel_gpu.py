@@ -470,3 +470,67 @@ def test_metrics_pass_on_the_card_stays_within_its_budgets(
     assert got == want
     assert sw.full_width_launches + sw.banded_launches - before > 8
     assert peak < 2 << 20
+
+
+def _sweep_config(num_iterations=2):
+    import random
+
+    r = random.Random(8)
+    genome = "".join(r.choice("ACGT") for _ in range(3000))
+    return {"num_reads": 400, "read_length": 60, "error_prob": 0.01,
+            "k": 5, "reference_genome": genome,
+            "expected_coverage": 400 * 60 / len(genome),
+            "experiment_name": "gpu", "num_iterations": num_iterations,
+            "contigs": None}
+
+
+@pytest.mark.gpu
+def test_run_for_params_on_the_card_equals_the_host_and_keeps_memory_flat(
+        cuda_device, monkeypatch, tmp_path):
+    # the card's aggregate equals the host's for the same seeds, and device
+    # memory after iteration 2 equals that after iteration 1
+    import random
+
+    from genome_assembly_tpu_torch.experiments import runner
+
+    def seeds():
+        return {"rng": random.Random(3), "np_rng": np.random.RandomState(3)}
+
+    want = runner.run_for_params(_sweep_config(), path=str(tmp_path),
+                                 device="cpu", **seeds())
+    after = []
+    inner = runner.run_simulations
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda_device))
+        return out
+
+    monkeypatch.setattr(runner, "run_simulations", recorded)
+    before = oa.launches, sw.full_width_launches
+    got = runner.run_for_params(_sweep_config(), path=str(tmp_path),
+                                device=cuda_device, **seeds())
+    assert got == want
+    assert (oa.launches - before[0], sw.full_width_launches - before[1]) == (
+        2, 2)
+    assert len(after) == 2 and after[1] == after[0]
+
+
+@pytest.mark.gpu
+def test_spawn_pool_on_the_card_equals_sequential_runs(cuda_device,
+                                                       tmp_path):
+    import copy
+    import random
+
+    from genome_assembly_tpu_torch.experiments import runner
+
+    configs = [_sweep_config(1), {**_sweep_config(1), "k": 7},
+               {**_sweep_config(1), "num_reads": 300}]
+    kw = {"rng": random.Random(4), "np_rng": np.random.RandomState(4),
+          "device": "cuda"}
+    pooled = runner.run_simulations_parallel(configs, path=str(tmp_path),
+                                             n_jobs=2, **kw)
+    alone = [runner.run_for_params(p, path=str(tmp_path),
+                                   **copy.deepcopy(kw)) for p in configs]
+    assert pooled == alone

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``: its constants, and its refusal to run without a card."""
+"""``chip_smoke.py``: its constants, its trace reading, and its refusal to
+run without a card."""
 
 import hashlib
 import importlib.util
@@ -11,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from genome_assembly_tpu.experiments.harness import run_experiments
+from genome_assembly_tpu.experiments.runner import run_for_params
 from genome_assembly_tpu.experiments.runner import (
     test_assembly as run_jax_assembly,
 )
 from genome_assembly_tpu.metrics.measures import calculate_n50
 from genome_assembly_tpu.simulate import read_genome_from_fasta
+from genome_assembly_tpu_torch.__main__ import quick_grids
 from genome_assembly_tpu_torch.experiments.runner import (
     test_assembly as run_port_assembly,
 )
@@ -131,3 +135,63 @@ def test_smoke_bound_counts_pair_list_comparisons():
     brute = sum(min(n, j) for n, m in zip(a_len, b_len)
                 for j in range(1, m + 1))
     assert smoke.pair_comparisons(a_len, b_len, 12) == brute
+
+
+def test_sweep_constants_match_jax_run_for_params(tmp_path):
+    """The JAX package's run_for_params reproduces phase 6a's aggregate
+    (PhiX, N=10000, l=150, p=0.01, k=5, 3 iterations, seed 0); its first
+    iteration is phase 4's run."""
+    smoke = _load_smoke()
+    genome = read_genome_from_fasta(os.path.join(ROOT, smoke.GENOME))
+    params = smoke.sweep_params(genome)
+    agg = run_for_params(params, path=str(tmp_path),
+                         rng=random.Random(smoke.SEED),
+                         np_rng=np.random.RandomState(smoke.SEED))
+    got = {k: v for k, v in agg.items()
+           if k.endswith((" avg", " std", " raw"))}
+    assert got == smoke.SWEEP_EXPECTED
+    assert [type(v) for v in got["expected_coverage raw"]] == [
+        type(params["expected_coverage"])] * smoke.SWEEP_ITERATIONS
+    assert {m: v[0] for m, v in ((m, agg[f"{m} raw"])
+                                 for m in smoke.EXPECTED["measures"])} == (
+        smoke.EXPECTED["measures"])
+    assert all(agg[k] == v for k, v in params.items())
+
+
+def test_quick_constants_match_jax_run_experiments(tmp_path):
+    """The JAX package's run_experiments on the --quick grids, seeded
+    through run_kw, writes the 12 CSVs whose hashes phase 6b holds."""
+    smoke = _load_smoke()
+    fasta = os.path.join(ROOT, smoke.GENOME)
+    run_experiments(fasta, str(tmp_path / "results"), str(tmp_path / "plots"),
+                    num_iterations=1, make_plots=False,
+                    grids=quick_grids(len(read_genome_from_fasta(fasta))),
+                    rng=random.Random(smoke.SEED),
+                    np_rng=np.random.RandomState(smoke.SEED))
+    assert smoke.csv_hashes(str(tmp_path / "results")) == smoke.QUICK_EXPECTED
+
+
+def test_smoke_device_busy_unions_intervals():
+    smoke = _load_smoke()
+
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    trace = {"traceEvents": [
+        ev("user_annotation", "other", 0, 1000),
+        ev("user_annotation", "test_assembly", 100, 100),
+        ev("kernel", "void k1()", 90, 20),          # clipped to 100..110
+        ev("kernel", "void k2()", 105, 10),         # overlaps k1: 110..115
+        ev("gpu_memcpy", "Memcpy HtoD", 150, 10),   # 150..160
+        ev("gpu_memset", "Memset", 195, 30),        # clipped to 195..200
+        ev("cpu_op", "aten::add", 100, 100),        # host: not counted
+        ev("kernel", "void k3()", 300, 5),          # outside the span
+        {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 120},
+    ]}
+    span, busy, by_name = smoke.device_busy(trace)
+    assert span == 100
+    assert busy == 15 + 10 + 5
+    assert by_name == {"void k1()": 10, "void k2()": 10, "Memcpy HtoD": 10,
+                       "Memset": 5, "void k3()": 0}
+    with pytest.raises(ValueError, match="test_assembly"):
+        smoke.device_busy({"traceEvents": trace["traceEvents"][:1]})
