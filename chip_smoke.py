@@ -77,7 +77,23 @@ Phases, each printed with the elapsed seconds as it ends:
    the all-pairs and the full-width SW kernel (the device busy time and
    idle share over ``test_assembly`` are read from it), and
    ``experiments --quick --no-plots``, which must write the 12 CSVs.
-   Prints which of pandas, matplotlib and joblib are installed here.
+   Prints which of pandas, matplotlib and joblib are installed here;
+7. the string-graph and unitig pipelines, on the card: 7a
+   ``test_assembly_new_pipeline`` at bench.py's workload (PhiX, N=1000,
+   l=100, p=0.01, fuzz=5, seed 0), its contigs and measures equal to the
+   JAX package's (NEW_PIPELINE_EXPECTED), the all-pairs and the
+   full-width SW kernel launched, each kernel's outputs on the path's own
+   inputs (the all-pairs kernel on the unique reads, diagonal included;
+   the SW kernel on every contig) equal to its plain version's, its stage
+   walls, peak memory and the max-plus reduction's time alone; 7b the unitig pipeline on 7a's first
+   400 reads, equal to the JAX package's (UNITIG_EXPECTED), and on all
+   1,000, equal to the port's run on the CPU; 7c ``score_pairs`` on reads
+   with an N (N against N included) below 200,000 pairs equal to the C++
+   scorer with no launch, at or above it equal to the plain all-pairs
+   (dense) and pair-list (sparse) versions, and N-free reads on both
+   kernels, the all-pairs route with self-pairs; 7d ``overlap_align_full``
+   on the card equal to its CPU run and the C++ full DP at indel -2, -1
+   and -2**25, and the device samplers held to their contract, each timed.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -252,6 +268,43 @@ QUICK_EXPECTED = {
     "experiment_varying_n/fixed_l_50/summary.csv":
         "2a27823bcbf5762ce1ddf5d4635a9434595f41268601176dd20a66ba92713166",
 }
+
+# Phase 7a: test_assembly_new_pipeline (the string-graph pipeline) at
+# bench.py's workload and BASELINE.json's config: PhiX, N = 1000, l = 100,
+# p = 0.01, fuzz = 5 (its k slot in the measures), seed 0; what the JAX
+# package returns there (recorded on the CPU;
+# tests/test_torch_new_pipeline_smoke.py re-runs the JAX package and asserts
+# these values).
+NEW_PIPELINE = {"read_length": 100, "num_reads": 1000, "error_prob": 0.01,
+                "fuzz": 5, "seed": 0}
+NEW_PIPELINE_EXPECTED = {
+    "contigs": 985,
+    "n50": 100,
+    "total_length": 97702,
+    "sha256":
+        "857b592d976dd8d3c484a49dc6ac74febde3e47d21991e019884104a79fc6ec3",
+    "measures": {
+        "Number of Contigs": 985,
+        "Genome Coverage": 1.0,
+        "N50": 100,
+        "Mismatch Rate Aligned Regions": 0.22298551800965466,
+        "Mismatch Rate Genome Level": 0.22298551800965466,
+    },
+}
+# Phase 7b: models.unitig.assemble_contigs on the first UNITIG_READS of 7a's
+# reads; the JAX package's unitigs (recorded on the CPU;
+# tests/test_torch_unitig_smoke.py re-runs the JAX package).
+UNITIG_READS = 400
+UNITIG_EXPECTED = {
+    "contigs": 15,
+    "n50": 572,
+    "total_length": 5222,
+    "sha256":
+        "0c38ea40332b9d3bd148ea07b9cac10efa5dc5de586f547e0b9f1653722fffaf",
+}
+# Phase 7c: the pair counts of its calls, on either side of the JAX
+# package's pair threshold (core/dispatch.py MIN_DEVICE_PAIRS = 200,000).
+SPARSE_UNIQUE = 17_000         # past graph/build.py DENSE_MAX_U = 16,384
 
 KERNEL_SOURCE = "genome_assembly_tpu_torch/csrc/overlap_allpairs.cu"
 KERNEL_REPLACES = "genome_assembly_tpu/ops/overlap_allpairs.py:312"
@@ -1119,6 +1172,418 @@ def sweep_path(log, genome: str, card_line: str) -> bool:
     return True
 
 
+def internal_n_reads(rs, count: int, l: int, genome_len: int,
+                     with_n: bool = True) -> list[str]:
+    """`count` distinct reads of 30 to `l` bases from a random genome of
+    `genome_len` bases; with `with_n`, every 50th genome base is an N, so
+    reads that overlap there put N against N."""
+    import numpy as np
+
+    chars = np.array(list("ACGT"))[rs.randint(0, 4, size=genome_len)]
+    if with_n:
+        chars[::50] = "N"
+    g = "".join(chars)
+    reads: dict[str, None] = {}
+    while len(reads) < count:
+        start = rs.randint(0, genome_len - l)
+        reads.setdefault(g[start:start + rs.randint(30, l + 1)])
+    return list(reads)
+
+
+# The reference's substitution alphabet (generateErrorProneReads.py): the
+# alternatives of each base, in the order a drawn index 0..2 picks them.
+ALTERNATIVES = {"A": "CGT", "C": "AGT", "G": "ACT", "T": "ACG"}
+
+
+def sampler_contract(sample, inject, genome_codes, l: int, n: int,
+                     p: float, seed: int):
+    """Phase 7d's checks of the device samplers on genome_codes' device:
+    lengths == min(l, G - start) with the starts redrawn from the seed,
+    each read equal to its genome window, PAD past each length, positions
+    past a length never mutated, every mutation the alternative that
+    ALTERNATIVES gives for its base and the redrawn index, and one seed one
+    output. Returns a list of the checks that failed."""
+    import torch
+
+    dev = genome_codes.device
+    gen = torch.Generator(device=dev)
+    g = genome_codes.shape[0]
+    reads, lengths = sample(gen.manual_seed(seed), genome_codes, l, n)
+    starts = torch.randint(0, g, (n,), generator=gen.manual_seed(seed),
+                           device=dev)
+    pos = torch.arange(l, device=dev)[None, :]
+    inside = pos < lengths[:, None]
+    window = genome_codes[(starts[:, None] + pos).clamp(max=g - 1)]
+    mutated = inject(gen.manual_seed(seed + 1), reads, lengths, p)
+    u = torch.rand(reads.shape, generator=gen.manual_seed(seed + 1),
+                   device=dev)
+    idx = torch.randint(0, 3, reads.shape, generator=gen, device=dev,
+                        dtype=torch.int8)
+    table = torch.tensor([["ACGT".index(c) for c in ALTERNATIVES[b]]
+                          for b in "ACGT"], dtype=torch.int8, device=dev)
+    alt = table[reads.long().clamp(max=3), idx.long()]
+    want = torch.where((u <= p) & inside, alt, reads)
+    reads_again, lengths_again = sample(gen.manual_seed(seed), genome_codes,
+                                        l, n)
+    again = inject(gen.manual_seed(seed + 1), reads_again, lengths_again, p)
+    changed = mutated != reads
+    checks = {
+        "lengths == min(l, G - start)":
+            torch.equal(lengths.long(), torch.clamp(g - starts, max=l)),
+        "reads == genome windows":
+            bool(torch.where(inside, reads == window, reads == 4).all()),
+        "PAD never mutates": bool((mutated[~inside] == 4).all()),
+        "alternative-base order": torch.equal(mutated, want),
+        "mutations change the base": bool(
+            (changed == ((u <= p) & inside)).all()),
+        "one seed, one output": torch.equal(again, mutated),
+    }
+    return [name for name, ok in checks.items() if not ok]
+
+
+def new_pipelines(log, genome: str, card_line: str, sm_clock_hz: float,
+                  device="cuda"):
+    """Phase 7: the string-graph and unitig pipelines, the internal-N
+    routes of score_pairs, the gapped overlap DP and the device samplers,
+    on the card (`device`). Bounds: int32 operations at 132 SMs x 64 lanes
+    x `sm_clock_hz`, bytes at PEAK_BYTES_PER_S. Returns the max abs err of
+    7a's checks of the all-pairs and the full-width SW kernel against their
+    plain versions, by kernel name, or None at the first failure
+    (logged)."""
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.core.encoding import encode, encode_batch
+    from genome_assembly_tpu_torch.experiments.runner import (
+        test_assembly_new_pipeline,
+    )
+    from genome_assembly_tpu_torch.graph.build import score_pairs
+    from genome_assembly_tpu_torch.models import string_graph, unitig
+    from genome_assembly_tpu_torch.native import graphcore
+    from genome_assembly_tpu_torch.ops import overlap as op
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+    from genome_assembly_tpu_torch.simulate import (
+        inject_errors_device,
+        sample_reads_device,
+    )
+    from genome_assembly_tpu_torch.utils.tracing import global_tracer
+
+    dev = torch.device(device)
+    tracer = global_tracer()
+    t7 = time.perf_counter()
+
+    def zero_counts():
+        tracer.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        oa.launches = op.launches = 0
+        sw.full_width_launches = sw.banded_launches = 0
+
+    def event_ms(fn, reps=3):
+        """Mean ms of `reps` calls of fn() between two CUDA events, after
+        one call that warms up."""
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    def stage_walls(names):
+        times = tracer.as_dict()
+        return ", ".join(f"{label} {times[name]['seconds']:.3f}s"
+                         if name in times else f"{label} not run"
+                         for label, name in names)
+
+    # ---- 7a: the string-graph pipeline --------------------------------------
+    cfg = NEW_PIPELINE
+    zero_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            CallRecorder(oa, "overlap_scores_all_pairs") as pair_calls, \
+            CallRecorder(sw, "sw_full_width") as full_calls:
+        contigs, measures, _, reads = test_assembly_new_pipeline(
+            genome, cfg["read_length"], cfg["num_reads"], "new_pipeline", 1,
+            tmp, cfg["error_prob"], cfg["fuzz"],
+            rng=random.Random(cfg["seed"]),
+            np_rng=np.random.RandomState(cfg["seed"]), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {"overlap_allpairs": oa.launches, "overlap_pairs": op.launches,
+              "sw_full_width": sw.full_width_launches,
+              "sw_banded": sw.banded_launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = tracer.as_dict()
+    got = {**contig_summary(contigs), "measures": measures}
+    log(f"phase 7a string-graph pipeline (PhiX, N={cfg['num_reads']}, "
+        f"l={cfg['read_length']}, p={cfg['error_prob']}, fuzz={cfg['fuzz']}, "
+        f"seed {cfg['seed']}): {wall:.2f}s, "
+        f"pairs={stages['score.pairs']['items']}, "
+        f"edges={stages['graph.transitive_reduction']['items']}, "
+        f"contigs={got['contigs']}, N50={got['n50']}, launches "
+        f"{json.dumps(counts)}, peak device memory={peak} B; stage walls: "
+        + stage_walls([("build", "graph.build"),
+                       ("of it scoring", "score.pairs"),
+                       ("reduction", "graph.transitive_reduction"),
+                       ("walk", "graph.walk_contigs"),
+                       ("metrics", "metrics.calculate")])
+        + f"; card {card_line}")
+    for line in tracer.report().splitlines():
+        log(f"phase 7a stage {line}")
+    if counts["overlap_allpairs"] < 1 or counts["sw_full_width"] < 1:
+        log("phase 7a FAILED: the pipeline did not launch the all-pairs and "
+            "the full-width SW kernel")
+        return None
+    if got != NEW_PIPELINE_EXPECTED:
+        log(f"phase 7a FAILED: result differs from the JAX package's:\n"
+            f"  got      {json.dumps(got)}\n"
+            f"  expected {json.dumps(NEW_PIPELINE_EXPECTED)}")
+        return None
+    log("phase 7a result == JAX package's")
+    # the path's two kernels on its own inputs against their plain versions,
+    # exactly (these launches come after the counts were read)
+    errs = {"overlap_allpairs": 0, "sw_full_width": 0}
+    for args, kwargs in pair_calls.calls:
+        codes, lengths = args
+        got = oa.overlap_scores_all_pairs(codes, lengths, **kwargs)
+        want = oa.overlap_scores_block_plain(codes, lengths, codes, lengths,
+                                             **kwargs)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        errs["overlap_allpairs"] = max(errs["overlap_allpairs"], err)
+        log(f"phase 7a all-pairs kernel {'==' if equal else '!='} plain on "
+            f"the path's {codes.shape[0]} unique reads, L={codes.shape[1]}, "
+            f"all {codes.shape[0] ** 2} pairs, diagonal included (max abs "
+            f"err {err})")
+        if not equal:
+            return None
+    equal, err = check_calls(
+        "full", full_calls.calls,
+        [sw.sw_full_width(*a, **k) for a, k in full_calls.calls])
+    errs["sw_full_width"] = err
+    log(f"phase 7a SW full kernel {'==' if equal else '!='} plain on every "
+        f"item of the path's {len(full_calls.calls)} full-width call(s), "
+        f"{sum(a[1].numel() for a, _ in full_calls.calls)} contigs (max abs "
+        f"err {err})")
+    if not equal:
+        return None
+    # the reduction alone on the card, on the same base pairs
+    g = string_graph.build_string_graph(reads, device=dev)
+    base = g.base_array()
+    bu, bv = base[g.src].astype(np.int64), base[g.dst].astype(np.int64)
+    _, first = np.unique(bu * g.num_unique + bv, return_index=True)
+    args = (g.num_unique, bu[first], bv[first], g.weight[first], dev)
+    reduce_ms = event_ms(lambda: string_graph.reduced_base_pairs(*args))
+    int_ops_per_s = SMS * INT32_LANES * sm_clock_hz
+    # an add and a max for each (v, w, x): 2 U^3 integer operations
+    reduce_bound = 2 * g.num_unique ** 3 / int_ops_per_s * 1e3
+    log(f"phase 7a max-plus reduction alone at U={g.num_unique}, "
+        f"{len(first)} base pairs: {reduce_ms:.3f} ms (mean of 3, CUDA "
+        f"events, the host-to-card copies included); bound {reduce_bound:.4f}"
+        f" ms by operations (2 U^3 int ops); card {card_line}")
+    del g
+
+    # ---- 7b: the unitig pipeline -----------------------------------------
+    zero_counts()
+    t = time.perf_counter()
+    unitigs = unitig.assemble_contigs(reads[:UNITIG_READS], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = contig_summary(unitigs)
+    log(f"phase 7b unitigs of {UNITIG_READS} reads on the card: {wall:.2f}s, "
+        f"unitigs={got['contigs']}, N50={got['n50']}, all-pairs launches "
+        f"{oa.launches}; stage walls: "
+        + stage_walls([("build", "graph.build"),
+                       ("reduction", "graph.transitive_reduction"),
+                       ("unitigs", "graph.unitigs")]))
+    if oa.launches < 1:
+        log("phase 7b FAILED: the unitig pipeline did not launch the "
+            "all-pairs kernel")
+        return None
+    if got != UNITIG_EXPECTED:
+        log(f"phase 7b FAILED: unitigs differ from the JAX package's:\n"
+            f"  got      {json.dumps(got)}\n"
+            f"  expected {json.dumps(UNITIG_EXPECTED)}")
+        return None
+    log(f"phase 7b {UNITIG_READS} reads: unitigs == JAX package's")
+    zero_counts()
+    t = time.perf_counter()
+    on_card = unitig.assemble_contigs(reads, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    card_walls = stage_walls([("build", "graph.build"),
+                              ("of it scoring", "score.pairs"),
+                              ("reduction", "graph.transitive_reduction"),
+                              ("unitigs", "graph.unitigs")])
+    launched = oa.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    t = time.perf_counter()
+    on_cpu = unitig.assemble_contigs(reads, device="cpu")
+    cpu_s = time.perf_counter() - t
+    log(f"phase 7b unitigs of all {len(reads)} reads: on the card "
+        f"{card_s:.2f}s ({card_walls}; all-pairs launches {launched}, peak "
+        f"device memory={peak} B), the port on the CPU {cpu_s:.2f}s; "
+        f"{len(on_card)} unitigs; card {card_line}")
+    if launched < 1 or on_card != on_cpu:
+        log("phase 7b FAILED: the card's unitigs differ from the CPU run's "
+            "or the all-pairs kernel did not launch")
+        return None
+    log("phase 7b all reads: card == CPU run")
+
+    # ---- 7c: reads with an N around the pair threshold --------------------
+    rs = np.random.RandomState(77)
+
+    def routed(name, unique, ia, ib, want_route, want_counts, reference):
+        zero_counts()
+        s, e = score_pairs(unique, (ia, ib), device=dev)
+        torch.cuda.synchronize()
+        route = [r for r in ("host", "allpairs", "pairlist")
+                 if f"score.pairs.{r}" in tracer.times]
+        counts = (oa.launches, op.launches)
+        left, lens = encode_batch(unique, align="left")
+        cpp = graphcore.overlap_nogap_pairs(left, lens, ia, ib)
+        ref = reference(left, lens, ia, ib)
+        diff = int((s != cpp[0]).sum() + (e != cpp[1]).sum())
+        ok = (route == [want_route] and counts == want_counts
+              and np.array_equal(s, ref[0]) and np.array_equal(e, ref[1]))
+        log(f"phase 7c {name}: U={len(unique)}, {len(ia)} pairs, route "
+            f"{route}, launches (all-pairs, pair-list) {counts}; "
+            f"{'==' if ok else '!='} its reference; {diff} scores and ends "
+            f"differ from the C++ scorer's")
+        return ok, diff
+
+    def cpp_ref(left, lens, ia, ib):
+        return graphcore.overlap_nogap_pairs(left, lens, ia, ib)
+
+    def dense_plain(left, lens, ia, ib):
+        c, ln = torch.from_numpy(left).to(dev), torch.from_numpy(lens).to(dev)
+        sm, em = oa.overlap_scores_block_plain(c, ln, c, ln)
+        a, b = torch.from_numpy(ia).long(), torch.from_numpy(ib).long()
+        return sm.cpu()[a, b].numpy(), em.cpu()[a, b].numpy()
+
+    def sparse_plain(left, lens, ia, ib):
+        s, e = op.overlap_scores_pairs_plain(*(
+            torch.from_numpy(x).to(dev) for x in (left, lens, ia, ib)))
+        return s.cpu().numpy(), e.cpu().numpy()
+
+    def all_pairs(u_count, diagonal=False):
+        ia, ib = np.meshgrid(np.arange(u_count, dtype=np.int32),
+                             np.arange(u_count, dtype=np.int32),
+                             indexing="ij")
+        keep = np.ones_like(ia, bool) if diagonal else ia != ib
+        return ia[keep], ib[keep]
+
+    def random_pairs(u_count, n_pairs):
+        return (rs.randint(0, u_count, n_pairs).astype(np.int32),
+                rs.randint(0, u_count, n_pairs).astype(np.int32))
+
+    few = internal_n_reads(rs, 300, 60, 2_000)
+    many = internal_n_reads(rs, 600, 60, 2_000)
+    wide = internal_n_reads(rs, SPARSE_UNIQUE, 40, 20_000)
+    clean = internal_n_reads(rs, 300, 60, 2_000, with_n=False)
+    clean_wide = internal_n_reads(rs, SPARSE_UNIQUE, 40, 20_000,
+                                  with_n=False)
+    cases = [
+        ("reads with N, below the threshold, all pairs and the diagonal",
+         few, *all_pairs(len(few), diagonal=True), "host", (0, 0), cpp_ref,
+         True),
+        ("reads with N, below the threshold, sparse",
+         wide, *random_pairs(len(wide), 150_000), "host", (0, 0), cpp_ref,
+         True),
+        ("reads with N, at or above the threshold, dense",
+         many, *all_pairs(len(many)), "allpairs", (1, 0), dense_plain, True),
+        ("reads with N, at or above the threshold, sparse",
+         wide, *random_pairs(len(wide), 250_000), "pairlist", (0, 1),
+         sparse_plain, True),
+        ("reads without N, below the threshold, all pairs and the diagonal",
+         clean, *all_pairs(len(clean), diagonal=True), "allpairs", (1, 0),
+         cpp_ref, False),
+        ("reads without N, below the threshold, sparse",
+         clean_wide, *random_pairs(len(clean_wide), 50_000), "pairlist",
+         (0, 1), cpp_ref, False),
+    ]
+    for name, unique, ia, ib, route, counts, reference, diverges in cases:
+        ok, diff = routed(name, unique, ia, ib, route, counts, reference)
+        if not ok:
+            log(f"phase 7c FAILED: {name}")
+            return None
+        if diverges and route != "host" and diff == 0:
+            log(f"phase 7c FAILED: {name}: no N against N changed a score, "
+                f"so the case tests nothing")
+            return None
+    log("phase 7c every internal-N route == the JAX package's semantics")
+
+    # ---- 7d: the gapped overlap DP and the device samplers ----------------
+    codes, lens = encode_batch(reads[:256], align="left")
+    partner = np.roll(np.arange(256), 1)
+    args_cpu = [torch.from_numpy(x) for x in
+                (codes, lens, codes[partner].copy(), lens[partner].copy())]
+    args_card = [x.to(dev) for x in args_cpu]
+    for indel in (-2, -1, -(2**25)):
+        s_k, e_k = op.overlap_align_full(*args_card, indel=indel)
+        t = time.perf_counter()
+        s_c, e_c = op.overlap_align_full(*args_cpu, indel=indel)
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        s_x, e_x = graphcore.overlap_baseline_batch(
+            *(x.numpy() for x in args_cpu), indel=indel)
+        cpp_ms = (time.perf_counter() - t) * 1e3
+        same = (torch.equal(s_k.cpu(), s_c) and torch.equal(e_k.cpu(), e_c)
+                and np.array_equal(s_c.numpy(), s_x)
+                and np.array_equal(e_c.numpy(), e_x))
+        card_ms = event_ms(lambda: op.overlap_align_full(*args_card,
+                                                         indel=indel))
+        cells = int((args_cpu[1].long() * args_cpu[3].long()).sum())
+        log(f"phase 7d overlap_align_full, 256 pairs of 7a's reads, L="
+            f"{codes.shape[1]}, indel {indel}: {'==' if same else '!='} its "
+            f"CPU run and the C++ full DP; card {card_ms:.3f} ms (mean of 3, "
+            f"CUDA events), the same torch ops on the host {cpu_ms:.1f} ms, "
+            f"the C++ full DP on the host {cpp_ms:.1f} ms (one thread; host "
+            f"clock); {cells} DP cells, bound "
+            f"{SW_OPS_PER_CELL * cells / int_ops_per_s * 1e3:.3g} ms by "
+            f"operations ({SW_OPS_PER_CELL} int ops a cell); card "
+            f"{card_line}")
+        if not same:
+            log("phase 7d FAILED: overlap_align_full")
+            return None
+    genome_codes = torch.from_numpy(encode(genome)).to(dev)
+    failed = sampler_contract(sample_reads_device, inject_errors_device,
+                              genome_codes, cfg["read_length"],
+                              cfg["num_reads"], 0.05, cfg["seed"])
+    log(f"phase 7d device samplers on the card (PhiX, N={cfg['num_reads']}, "
+        f"l={cfg['read_length']}, p=0.05): failed checks {failed}")
+    if failed:
+        log("phase 7d FAILED: the device samplers break their contract")
+        return None
+    gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+    for n in (cfg["num_reads"], 1_000_000):
+        sample_ms = event_ms(lambda: sample_reads_device(
+            gen, genome_codes, cfg["read_length"], n))
+        sampled = sample_reads_device(gen, genome_codes, cfg["read_length"],
+                                      n)
+        inject_ms = event_ms(lambda: inject_errors_device(
+            gen, *sampled, cfg["error_prob"]))
+        # bytes: the genome read once, the reads and lengths written;
+        # the injector reads both and writes the reads
+        out_bytes = n * (cfg["read_length"] + 4)
+        sample_bound = (len(genome) + out_bytes) / PEAK_BYTES_PER_S * 1e3
+        inject_bound = (out_bytes + n * cfg["read_length"]) \
+            / PEAK_BYTES_PER_S * 1e3
+        log(f"phase 7d sample_reads_device at N={n}, l="
+            f"{cfg['read_length']}: {sample_ms:.3f} ms (bound "
+            f"{sample_bound:.3g} ms by bytes), inject_errors_device "
+            f"{inject_ms:.3f} ms (bound {inject_bound:.3g} ms by bytes); "
+            f"means of 3, CUDA events; card {card_line}")
+        del sampled
+    log(f"phase 7 new pipelines passed: {time.perf_counter() - t7:.1f}s")
+    return errs
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1699,6 +2164,13 @@ def main() -> int:
     })
     if not sweep_path(log, genome, card_line):
         return 1
+    errs = new_pipelines(log, genome, card_line, sm_clock_hz)
+    if errs is None:
+        return 1
+    for entry in kernels:
+        if entry["name"] in errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       errs[entry["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed; wall {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

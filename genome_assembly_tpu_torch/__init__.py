@@ -9,16 +9,20 @@ JAX package: host helpers it needs are copied here.
 Module paths and public names mirror the JAX package:
 
 - ``core``        int8 sequence encoding, config, device dispatch rules
-- ``simulate``    host read sampling + sequencing-error injection
+- ``simulate``    read sampling + sequencing-error injection, on the host
+                  and as torch ops with a ``torch.Generator``
 - ``ops``         the hand kernels (``csrc/``: all-pairs and pair-list
                   overlap scoring, Smith-Waterman) and their plain PyTorch
-                  versions
+                  versions, the gapped overlap DP as torch ops, and the
+                  host oracles
 - ``graph``       the k-mer join, overlap-graph construction, cycle
                   removal, layout, the fast greedy layout, consensus
-- ``models``      the overlap-graph assembly pipeline (exact-parity and
-                  fast layouts)
+- ``models``      the three assembly families: the overlap-graph pipeline
+                  (exact-parity and fast layouts), the string graph with its
+                  Myers reduction, and the unitig pipeline
 - ``metrics``     assembly quality measures (N50, coverage, mismatch rates)
-- ``experiments`` ``test_assembly`` (one assemble-and-measure run), the
+- ``experiments`` ``test_assembly`` (one assemble-and-measure run) and
+                  ``test_assembly_new_pipeline`` (its string-graph twin), the
                   sweep runners (``run_for_params``,
                   ``run_simulations_parallel``: spawned workers sharing
                   the card) and the three-experiment harness

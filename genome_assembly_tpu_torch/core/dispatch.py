@@ -10,7 +10,13 @@ for a launch, so those thresholds do not carry over:
 
 - on a CUDA device, pair scoring goes to the all-pairs or the pair-list
   kernel (``graph/build.py`` picks by density) and the metrics pass to the
-  Smith-Waterman kernels, whatever the problem size;
+  Smith-Waterman kernels, whatever the problem size, with one exception:
+  a call of fewer than ``MIN_DEVICE_PAIRS`` pairs whose reads carry PAD (an
+  ``N``) inside their lengths goes to the C++ scorer, because that is the
+  JAX package's answer there on every backend, and the kernels score a PAD
+  cell otherwise (PAD against PAD: a match in the C++ scorer, a mismatch in
+  the all-pairs kernel, 0 in the pair-list kernel). For reads without an
+  ``N`` the three agree, so the rule only swaps an executor;
 - on a CPU device, the JAX package's host rules hold: the C++ scorer and
   the C++ Smith-Waterman engine, as the JAX package uses on a CPU backend.
 
@@ -29,6 +35,11 @@ import torch
 
 EXECUTORS = ("auto", "native", "xla")
 
+# The JAX package's pair threshold (``min_device_pairs()`` default,
+# genome_assembly_tpu/core/dispatch.py:42-43): below it, its score_pairs
+# answers with the C++ scorer on any backend.
+MIN_DEVICE_PAIRS = 200_000
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for a device spec; the JAX package's booleans map
@@ -44,10 +55,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def use_host_pair_scoring(device: torch.device) -> bool:
-    """C++ pair scorer on a CPU device; the overlap kernels on a CUDA
-    device for every pair count."""
-    return device.type != "cuda"
+def use_host_pair_scoring(device: torch.device, n_pairs: int,
+                          internal_pad: bool) -> bool:
+    """C++ pair scorer on a CPU device; on a CUDA device only for a call of
+    fewer than MIN_DEVICE_PAIRS pairs whose reads carry PAD inside their
+    lengths (``internal_pad``), else the overlap kernels."""
+    if device.type != "cuda":
+        return True
+    return internal_pad and n_pairs < MIN_DEVICE_PAIRS
 
 
 def use_host_metrics(device: torch.device, executor: str = "auto") -> bool:

@@ -2,7 +2,8 @@
 
 `test_assembly` is the end-to-end unit (reference testAssembly.py:7-39):
 read generation -> error injection -> assembly -> metrics. It is the port's
-main path.
+main path. `test_assembly_new_pipeline` is the same unit around the
+string-graph pipeline (testAssembly.py:42-72).
 
 `run_simulations` / `run_simulations_parallel` mirror experiments.py:451-539:
 each parameter config runs `num_iterations` times; numeric result keys are
@@ -49,8 +50,8 @@ def test_assembly(genome: str, l: int, N: int, error_prob: float, k: int,
     chaining (graph/greedy.py, with its consensus polish; documented
     non-parity semantics); `consensus=True` polishes the exact-parity
     contigs by pileup majority vote (graph/consensus.py).
-    `use_native=False` with the exact layout (the Python cycle removal) is
-    not ported yet and raises NotImplementedError."""
+    `use_native=False` runs the Python cycle removal (or, with the fast
+    layout, the Python accept loop) in place of the C++ engine."""
     dev = resolve_device(device)
     with stage("simulate.reads", items=N):
         error_free = generate_error_free_reads(genome, l, N, rng=rng)
@@ -68,6 +69,35 @@ def test_assembly(genome: str, l: int, N: int, error_prob: float, k: int,
             contigs, error_prone, len(error_prone), l, error_prob, k, genome,
             experiment_name, num_iteration, path, plot_hooks=plot_hooks,
             verbose=verbose, banded=banded, device=dev)
+    return contigs, measures, details, error_prone
+
+
+def test_assembly_new_pipeline(genome: str, l: int, N: int,
+                               experiment_name: str, num_iteration: int,
+                               path: str, error_prob: float, fuzz: int,
+                               rng: random.Random | None = None,
+                               np_rng: np.random.RandomState | None = None,
+                               device="cuda", plot_hooks=None):
+    """String-graph pipeline run (reference testAssembly.py:42-72);
+    `fuzz` doubles as the k slot in the measures call, as in the reference
+    (testAssembly.py:69). Returns (contigs, measures,
+    contigs_alignment_details, error_prone_reads). `device` is the torch
+    device of the scoring, the reduction and the metrics pass ("cuda" by
+    default; True and False as in the JAX package; raises without a
+    card)."""
+    from ..models.string_graph import assemble_contigs_string
+
+    dev = resolve_device(device)
+    with stage("simulate.reads", items=N):
+        error_free = generate_error_free_reads(genome, l, N, rng=rng)
+        error_prone = generate_error_prone_reads(error_free, error_prob,
+                                                 rs=np_rng)
+    contigs = assemble_contigs_string(error_prone, fuzz=fuzz, device=dev)
+    with stage("metrics.calculate", items=len(contigs)):
+        measures, details = calculate_measures(
+            contigs, error_prone, len(error_prone), l, error_prob, fuzz,
+            genome, experiment_name, num_iteration, path,
+            plot_hooks=plot_hooks, device=dev)
     return contigs, measures, details, error_prone
 
 

@@ -14,10 +14,12 @@ Reference semantics (overlapGraphs.py:5-61):
 
 Edge insertion order is preserved exactly (it determines adjacency order,
 hence cycle-removal and topological order, hence the contigs): candidates
-are enumerated in reference order (the sort-join, on the card for
-0 < k <= 15), and scoring on a CUDA device either runs the all-pairs kernel
-over every unique pair and gathers the candidates (the dense route) or the
-pair-list kernel over the candidates alone (the sparse route).
+are enumerated in reference order (the sort-join as torch ops on the
+caller's device for 1 <= k <= 31), and scoring on a CUDA device either runs
+the all-pairs kernel over every unique pair and gathers the candidates (the
+dense route) or the pair-list kernel over the candidates alone (the sparse
+route), or, for fewer than 200,000 pairs of reads with an N, the C++ scorer
+(``core/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core import dispatch
-from ..core.encoding import encode_batch
+from ..core.encoding import PAD, encode_batch
 from ..utils.tracing import stage
 
 # The JAX package's dense all-pairs limit (GA_TPU_DENSE_MAX_U default): up
@@ -169,11 +171,16 @@ def score_pairs(unique_reads: list[str], pairs, chunk: int = 16384,
     otherwise (the sparse route) the pair-list kernel (ops/overlap.py)
     scores the requested pairs alone, in one launch. Either way the results
     come back to the host once. On a CPU device the C++ engine scores the
-    pairs, as in the JAX package on a CPU backend. `chunk` is the JAX
-    package's pair batch of its sparse route (signature parity); every
-    route here takes every pair at once.
+    pairs, as in the JAX package on a CPU backend, and on a CUDA device too
+    when fewer than dispatch.MIN_DEVICE_PAIRS pairs are asked of reads
+    that carry PAD (an N) inside their lengths: the JAX package's answer
+    there (``core/dispatch.py``). `chunk` is the JAX package's pair batch of
+    its sparse route (signature parity); every route here takes every pair
+    at once.
 
-    Feeds the global tracer's "score.pairs" stage.
+    Feeds the global tracer's "score.pairs" stage, and inside it one of
+    "score.pairs.host", "score.pairs.allpairs" or "score.pairs.pairlist",
+    which names the route taken.
     """
     dev = dispatch.resolve_device(device)
     ia, ib = _pairs_to_arrays(pairs)
@@ -187,26 +194,32 @@ def _score_pairs_impl(unique_reads: list[str], ia, ib, dev: torch.device):
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
     u_count = len(unique_reads)
     left, lens = encode_batch(unique_reads, align="left")
-    if dispatch.use_host_pair_scoring(dev):
+    internal_pad = bool(
+        ((left == PAD) & (np.arange(left.shape[1]) < lens[:, None])).any())
+    if dispatch.use_host_pair_scoring(dev, n_pairs, internal_pad):
         from ..native import graphcore
 
-        return graphcore.overlap_nogap_pairs(left, lens, ia, ib)
+        with stage("score.pairs.host", items=n_pairs):
+            return graphcore.overlap_nogap_pairs(left, lens, ia, ib)
     codes = torch.from_numpy(left).to(dev)
     lengths = torch.from_numpy(lens).to(dev)
     if u_count > DENSE_MAX_U and n_pairs * 20 < u_count * u_count:
         from ..ops.overlap import overlap_scores_pairs
 
-        s, e = overlap_scores_pairs(codes, lengths,
-                                    torch.from_numpy(ia).to(dev),
-                                    torch.from_numpy(ib).to(dev))
-        both = torch.stack([s, e]).cpu().numpy()
+        with stage("score.pairs.pairlist", items=n_pairs):
+            s, e = overlap_scores_pairs(codes, lengths,
+                                        torch.from_numpy(ia).to(dev),
+                                        torch.from_numpy(ib).to(dev))
+            both = torch.stack([s, e]).cpu().numpy()
         return both[0], both[1]
     from ..ops.overlap_allpairs import overlap_scores_all_pairs
 
-    s_mat, e_mat = overlap_scores_all_pairs(codes, lengths)
-    ia_d = torch.from_numpy(ia.astype(np.int64)).to(dev)
-    ib_d = torch.from_numpy(ib.astype(np.int64)).to(dev)
-    both = torch.stack([s_mat[ia_d, ib_d], e_mat[ia_d, ib_d]]).cpu().numpy()
+    with stage("score.pairs.allpairs", items=n_pairs):
+        s_mat, e_mat = overlap_scores_all_pairs(codes, lengths)
+        ia_d = torch.from_numpy(ia.astype(np.int64)).to(dev)
+        ib_d = torch.from_numpy(ib.astype(np.int64)).to(dev)
+        both = torch.stack([s_mat[ia_d, ib_d],
+                            e_mat[ia_d, ib_d]]).cpu().numpy()
     return both[0], both[1]
 
 

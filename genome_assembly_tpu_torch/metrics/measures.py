@@ -17,7 +17,9 @@ Reference semantics (performanceMeasures.py):
 
 The coverage and mismatch counts run on the given torch device: a +1/-1
 difference array with ``index_add_`` and ``cumsum``, and an ``index_add_`` of
-the mismatch columns (the JAX package's ``_scatter_device_fn``).
+the mismatch columns (the JAX package's ``_scatter_device_fn``). The
+reference's loop (``_coverage_and_mismatch_python``, the parity oracle) and
+its two dead-code metric variants are host copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,6 +33,25 @@ from ..utils.tracing import stage
 from .align_to_ref import align_contigs_to_reference
 
 _DASH = np.uint8(ord("-"))
+
+
+def _coverage_and_mismatch_python(details: dict, genome_length: int):
+    """The reference's per-column interpreter loop
+    (performanceMeasures.py:25-50); kept as the parity oracle for the
+    vectorized path below."""
+    coverage = np.zeros(genome_length)
+    mismatches = np.zeros(genome_length)
+    for contig, d in details.items():
+        start, end = d["Start Position"], d["End Position"]
+        if start == -1 or end == -1:
+            continue
+        coverage[start:end] += 1
+        ar = d["Alignment_reference"]
+        aq = d["Alignment_query"]
+        for i in range(end - start):
+            if aq[i] == "-" or aq[i] != ar[i]:
+                mismatches[start + i] += 1
+    return coverage, mismatches
 
 
 def coverage_and_mismatch_vectors(details: dict, genome_length: int,
@@ -110,6 +131,48 @@ def calculate_genome_coverage_and_mismatch_rate(
     mismatch_rate_aligned = n_mismatch / covered if covered > 0 else 0.0
     mismatch_rate_genome = (n_mismatch + uncovered) / genome_length
     return coverage_rate, mismatch_rate_aligned, mismatch_rate_genome
+
+
+def calculate_mismatch_rate_aligned_regions(contigs_alignment_details: dict,
+                                            reference_genome: str) -> float:
+    """Dead-code metric variant kept for capability parity
+    (performanceMeasures.py:76-121, never called in the live path)."""
+    genome_length = len(reference_genome)
+    total_mm = 0
+    total_aligned = 0
+    for contig, d in contigs_alignment_details.items():
+        start, end = d["Start Position"], d["End Position"]
+        if start == -1 or end == -1:
+            continue
+        total_aligned += end - start
+        c_seq = contig[max(0, -start): min(len(contig), len(contig) + (genome_length - end))]
+        r_seq = reference_genome[max(0, start): min(genome_length, end)]
+        m = min(len(c_seq), len(r_seq))
+        if m > 0:
+            total_mm += sum(a != b for a, b in zip(c_seq[:m], r_seq[:m]))
+    if total_aligned == 0:
+        return 0.0
+    rate = (total_mm / total_aligned) * (total_aligned / genome_length)
+    return min(1.0, max(0.0, rate))
+
+
+def calculate_mismatch_rate_full_genome(contigs_alignment_details: dict,
+                                        reference_genome: str,
+                                        coverage: np.ndarray) -> float:
+    """Dead-code metric variant (performanceMeasures.py:146-187)."""
+    genome_length = len(reference_genome)
+    total_mm = 0
+    for contig, d in contigs_alignment_details.items():
+        start, end = d["Start Position"], d["End Position"]
+        if start == -1 or end == -1:
+            continue
+        c_seq = contig[max(0, -start): min(len(contig), len(contig) + (genome_length - end))]
+        r_seq = reference_genome[max(0, start): min(genome_length, end)]
+        m = min(len(c_seq), len(r_seq))
+        if m > 0:
+            total_mm += sum(a != b for a, b in zip(c_seq[:m], r_seq[:m]))
+    total_mm += int(np.count_nonzero(coverage == 0))
+    return min(1.0, total_mm / genome_length)
 
 
 def calculate_measures(contigs: list[str], reads: list[str], num_reads: int,

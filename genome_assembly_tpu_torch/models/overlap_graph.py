@@ -35,9 +35,9 @@ def assemble_contigs_using_overlap_graphs(reads: list[str], k: int = 5,
         device: torch device that scores the candidate pairs ("cuda" by
             default, True and False as in the JAX package; raises without
             a card).
-        use_native: the C++ engine. With exact_parity it must be True
-            (the Python cycle removal is ROADMAP A9); with the fast layout
-            False runs the Python accept loop.
+        use_native: the C++ engine; False runs the Python loops instead
+            (the cycle removal with exact_parity, the accept loop with the
+            fast layout), never as a fallback.
         exact_parity: True (default) reproduces the reference layout
             bit for bit; False switches to the fast greedy best-overlap
             chaining layout (graph/greedy.py), with its own consensus

@@ -70,6 +70,22 @@ def _declare(lib) -> None:
         u8,                     # ops out (B, ops_stride)
         ll,                     # n_threads
     ]
+    lib.gc_overlap_baseline_batch.restype = ll
+    lib.gc_overlap_baseline_batch.argtypes = [
+        ll, ll,                 # B, L
+        i8, i32,                # a codes (B, L), a_len
+        i8, i32,                # b codes (B, L), b_len
+        ll, ll, ll,             # match, mismatch, indel
+        i32, i32,               # score out, end out
+    ]
+    lib.gc_local_align.restype = ll
+    lib.gc_local_align.argtypes = [
+        ll, ll,                 # n (query length), m (reference length)
+        i8, i8,                 # query codes, reference codes
+        ll, ll, ll,             # match, mismatch, indel
+        i32, i32, i32,          # score, bi, bj out
+        u8,                     # ops out (n + m)
+    ]
     lib.gc_greedy_chain.restype = ll
     lib.gc_greedy_chain.argtypes = [
         ll, ll,                 # n_nodes, n_edges
@@ -216,3 +232,50 @@ def local_align_banded_batch(queries: list[str], genome_codes, d0,
                                         score, bi, bj, steps, ops,
                                         _n_threads())
     return score, bi, bj, steps, ops
+
+
+def local_align(query: str, reference: str, match_score: int = 10,
+                mismatch: int = -1, indel: int = -1):
+    """C++ Smith-Waterman with reference semantics (aligners.py:85-167).
+
+    Returns (aligned_ref, aligned_query, score, start, end) like the
+    Python oracle (ops/oracle.py local_align_oracle)."""
+    from ..core.encoding import encode
+    from ..ops.smith_waterman import replay_ops_host
+
+    lib = load()
+    n, m = len(query), len(reference)
+    if n == 0 or m == 0:
+        return "", "", 0, 0, 0
+    q = np.ascontiguousarray(encode(query), dtype=np.int8)
+    r = np.ascontiguousarray(encode(reference), dtype=np.int8)
+    score = np.zeros(1, np.int32)
+    bi = np.zeros(1, np.int32)
+    bj = np.zeros(1, np.int32)
+    ops = np.zeros(n + m, np.uint8)
+    steps = lib.gc_local_align(n, m, q, r, match_score, mismatch, indel,
+                               score, bi, bj, ops)
+    ar, aq, start = replay_ops_host(ops[:steps], int(bi[0]), int(bj[0]),
+                                    query, reference)
+    return ar, aq, int(score[0]), start, int(bj[0])
+
+
+def overlap_baseline_batch(a_codes, a_len, b_codes, b_len, match_score=10,
+                           mismatch=-1, indel=-(2**31)):
+    """Reference-faithful full-DP overlap alignment on a batch of pairs
+    (compiled C++, the Numba-baseline stand-in — see graphcore.cpp).
+
+    Args: a_codes/b_codes (B, L) int8 LEFT-aligned, a_len/b_len (B,) int32.
+    Returns (score, end_pos) int32 arrays of shape (B,).
+    """
+    lib = load()
+    a = np.ascontiguousarray(a_codes, dtype=np.int8)
+    b = np.ascontiguousarray(b_codes, dtype=np.int8)
+    al = np.ascontiguousarray(a_len, dtype=np.int32)
+    bl = np.ascontiguousarray(b_len, dtype=np.int32)
+    B, L = a.shape
+    score = np.empty((B,), dtype=np.int32)
+    end = np.empty((B,), dtype=np.int32)
+    lib.gc_overlap_baseline_batch(B, L, a, al, b, bl, match_score, mismatch,
+                                  indel, score, end)
+    return score, end

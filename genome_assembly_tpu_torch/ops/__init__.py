@@ -1,4 +1,6 @@
+from .gotoh import local_align_affine
 from .overlap import (
+    overlap_align_full,
     overlap_scores_pairs,
     overlap_scores_pairs_plain,
     right_align,
@@ -10,6 +12,8 @@ from .overlap_allpairs import (
 )
 
 __all__ = [
+    "local_align_affine",
+    "overlap_align_full",
     "overlap_scores_all_pairs",
     "overlap_scores_block",
     "overlap_scores_block_plain",

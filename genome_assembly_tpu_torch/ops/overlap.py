@@ -17,8 +17,12 @@ There is no fallback between the two. One call of the launch entry
 every read into bit planes in a scratch tensor that the wrapper allocates
 (``scratch_words``), the other scores the pairs, a warp walking
 ``PAIRS_A_WARP`` consecutive pairs and keeping the source read's planes
-while ``ia`` repeats. ``launches`` counts one a call, for both. The gapped
-``overlap_align_full`` (ROADMAP A9) is not ported.
+while ``ia`` repeats. ``launches`` counts one a call, for both.
+
+``overlap_align_full`` is the gapped overlap DP for arbitrary penalties
+(the JAX package's XLA program of that name, on no assembly path), as
+torch ops on the inputs' device; ``overlap_scores_host`` is the JAX
+package's numpy no-gap scorer, copied.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from .._build import build_shared_library
@@ -240,4 +245,107 @@ def overlap_scores_pairs_plain(codes: torch.Tensor, lengths: torch.Tensor,
         best = per_j.argmax(dim=1)                        # first maximum
         scores[lo:lo + step] = per_j.gather(1, best[:, None])[:, 0]
         ends[lo:lo + step] = best.to(torch.int32)
+    return scores, ends
+
+
+def overlap_align_full(a: torch.Tensor, a_len: torch.Tensor,
+                       b: torch.Tensor, b_len: torch.Tensor,
+                       match_score: int = 10, mismatch: int = -1,
+                       indel: int = -2):
+    """Full overlap DP (gaps allowed) via an anti-diagonal wavefront, as
+    torch ops on the inputs' device (the JAX package's
+    ``ops/overlap.py::overlap_align_full``).
+
+    Exact tie-break cascade of the reference (aligners.py:40-48):
+    diag if diag>=up and diag>=left; elif up>=left -> up; else left.
+    `indel` is clamped to -2**24 — values below that are numerically
+    indistinguishable from "never choose a gap" (dp is bounded by ±10*L)
+    and clamping keeps all arithmetic exactly representable in int32.
+
+    Args:
+        a: (B, L) int8 LEFT-aligned source reads.
+        a_len: (B,) int32 true lengths of a, in [0, L].
+        b: (B, L) int8 LEFT-aligned target reads.
+        b_len: (B,) int32, in [0, L].
+
+    Returns (score, end_pos) — (B,) int32 each: the first maximum of the
+    last row dp[len a][j] over j = 0 .. len b, and its j.
+    """
+    if a.dim() != 2 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"a and b must be (B, L) of one shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    B, L = a.shape
+    dev = a.device
+    if L == 0:
+        zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        return zeros, zeros.clone()
+    indel_c = max(int(indel), -(2**24))
+    # cells outside the (len a + 1) x (len b + 1) rectangle never win a max
+    neg = -(2**28)
+    i_idx = torch.arange(L + 1, device=dev)[None, :]           # (1, L+1)
+    n = a_len.to(torch.int64)[:, None]                          # (B, 1)
+    m = b_len.to(torch.int64)[:, None]
+    # a[i-1] on every slot i of a diagonal (slot 0 is a boundary cell)
+    a_i = a[:, (i_idx[0] - 1).clamp(0, L - 1)]                  # (B, L+1)
+    b_rows = torch.arange(B, device=dev)[:, None]
+
+    def valid(d):
+        j = d - i_idx
+        return (i_idx <= n) & (j <= m) & (j >= 0)
+
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    neg_t = torch.full((), neg, dtype=torch.int32, device=dev)
+    dm2 = torch.where(i_idx == 0, zero, neg_t).expand(B, L + 1)  # d = 0
+    dm1 = torch.where((i_idx <= 1) & valid(1), zero, neg_t)     # d = 1
+    # dp[len a][d - len a] for every diagonal d: slot len a of diagonal d
+    at_n = [dm2.gather(1, n), dm1.gather(1, n)]
+    for d in range(2, 2 * L + 1):
+        b_j = b[:, (d - i_idx[0] - 1).clamp(0, L - 1)]
+        sub = torch.where(a_i == b_j, match_score, mismatch).to(torch.int32)
+        diag = torch.roll(dm2, 1, dims=1) + sub                 # dp[i-1][j-1]
+        up = torch.roll(dm1, 1, dims=1) + indel_c               # dp[i-1][j]
+        left = dm1 + indel_c                                    # dp[i][j-1]
+        take_diag = (diag >= up) & (diag >= left)
+        val = torch.where(take_diag, diag, torch.where(up >= left, up, left))
+        # boundaries: dp[0][j] = 0 and dp[i][0] = 0
+        val = torch.where((i_idx == 0) | (i_idx == d), zero, val)
+        val = torch.where(valid(d), val, neg_t)
+        at_n.append(val.gather(1, n))
+        dm2, dm1 = dm1, val
+    per_d = torch.cat(at_n, dim=1)                              # (B, 2L+1)
+    j = torch.arange(L + 1, device=dev)[None, :]
+    last_row = per_d.gather(1, (n + j).clamp(0, 2 * L))         # (B, L+1)
+    masked = torch.where(j <= m, last_row, neg_t)
+    end_pos = masked.argmax(dim=1)                              # first max
+    score = masked[b_rows[:, 0], end_pos]
+    return score.to(torch.int32), end_pos.to(torch.int32)
+
+
+def overlap_scores_host(pairs_a: np.ndarray, pairs_b: np.ndarray,
+                        len_a: np.ndarray, len_b: np.ndarray,
+                        match_score: int = 10, mismatch: int = -1):
+    """Pure-numpy no-gap scorer (same math as `overlap_scores_pairs`, one
+    pair a row of the two operand matrices), used as a mid-level
+    cross-check between the Python oracle and the kernels."""
+    B, L = pairs_a.shape
+    scores = np.zeros((B,), dtype=np.int32)
+    ends = np.zeros((B,), dtype=np.int32)
+    for p in range(B):
+        n, m = int(len_a[p]), int(len_b[p])
+        s = pairs_a[p, :n]
+        t = pairs_b[p, :m]
+        best, bj = -np.inf, 0
+        for j in range(m + 1):
+            d = min(n, j)
+            if d == 0:
+                v = 0
+            else:
+                seg_s = s[n - d:]
+                seg_t = t[j - d:j]
+                eq = seg_s == seg_t
+                v = int(match_score * eq.sum() + mismatch * (~eq).sum())
+            if v > best:
+                best, bj = v, j
+        scores[p] = best
+        ends[p] = bj
     return scores, ends

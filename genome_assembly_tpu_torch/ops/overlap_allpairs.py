@@ -17,6 +17,10 @@ Returns (score, end) (Na, Nb) int32 matrices.
 ``csrc/overlap_allpairs.cu`` (built with ``nvcc`` at first use), on a CPU
 tensor it runs ``overlap_scores_block_plain``, the counterpart of
 ``overlap_scores_block_xla``. There is no fallback between the two.
+``overlap_scores_all_pairs_xla`` (the plain version) and
+``overlap_scores_all_pairs_auto`` (the route on a device it resolves, the
+card by default) carry the JAX package's entry-point names, and
+``overlap_scores_all_pairs_host`` is its numpy oracle, copied.
 
 The kernel counts matches on the tensor cores: bases as one-hot bytes, one
 int8 product (``wgmma``) per j over only the positions that j aligns, and a
@@ -30,9 +34,11 @@ import ctypes
 import os
 import shutil
 
+import numpy as np
 import torch
 
 from .._build import build_shared_library
+from ..core.dispatch import resolve_device
 from .overlap import right_align
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -176,6 +182,43 @@ def overlap_scores_all_pairs(codes: torch.Tensor, lengths: torch.Tensor,
     both source and target, i == t diagonal included)."""
     return overlap_scores_block(codes, lengths, codes, lengths,
                                 match_score=match_score, mismatch=mismatch)
+
+
+def overlap_scores_all_pairs_xla(codes: torch.Tensor, lengths: torch.Tensor,
+                                 match_score: int = 10, mismatch: int = -1):
+    """Square all-pairs case of `overlap_scores_block_plain`, the plain
+    version, on whichever device the tensors lie (the JAX package's
+    ``overlap_scores_all_pairs_xla`` is its plain reference too)."""
+    return overlap_scores_block_plain(codes, lengths, codes, lengths,
+                                      match_score=match_score,
+                                      mismatch=mismatch)
+
+
+def overlap_scores_all_pairs_auto(codes, lengths, match_score: int = 10,
+                                  mismatch: int = -1, device="cuda"):
+    """Device-dispatching all-pairs entry point: moves ``codes`` and
+    ``lengths`` (tensors or numpy arrays) to ``device`` (``resolve_device``:
+    the card by default, RuntimeError without one) and runs
+    `overlap_scores_all_pairs` there, the kernel on a card and the plain
+    version on the CPU."""
+    dev = resolve_device(device)
+    return overlap_scores_all_pairs(torch.as_tensor(codes, device=dev),
+                                    torch.as_tensor(lengths, device=dev),
+                                    match_score=match_score,
+                                    mismatch=mismatch)
+
+
+def overlap_scores_all_pairs_host(codes: np.ndarray, lengths: np.ndarray,
+                                  match_score: int = 10, mismatch: int = -1):
+    """Numpy oracle for the all-pairs kernel (slow; tests only)."""
+    from .overlap import overlap_scores_host
+
+    n = codes.shape[0]
+    ia, ib = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    s, e = overlap_scores_host(codes[ia.ravel()], codes[ib.ravel()],
+                               lengths[ia.ravel()], lengths[ib.ravel()],
+                               match_score=match_score, mismatch=mismatch)
+    return s.reshape(n, n), e.reshape(n, n)
 
 
 def _one_hot4(codes: torch.Tensor) -> torch.Tensor:

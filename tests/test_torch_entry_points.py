@@ -1,10 +1,12 @@
 """The port's entry points take the JAX package's keywords (ROADMAP §C 1),
 and the overlap wrapper refuses lengths outside [0, L] (ROADMAP §C 2).
 
-- every reference keyword is accepted; values whose path is not ported
-  raise NotImplementedError naming their ROADMAP item, and the values
-  ported since (the fast layout, the consensus polish, the read
-  placements) give the JAX package's results;
+- every reference keyword is accepted, and the values ported since the
+  first slice (the fast layout, the consensus polish, the read placements,
+  the Python cycle removal behind ``use_native=False``) give the JAX
+  package's results;
+- reads with an N below the pair threshold get the C++ scorer's answer on
+  a CUDA device too (ROADMAP §C 3);
 - ``device=True`` / ``False`` mean the card / the host, as in the JAX
   package: False gives the result of ``device="cpu"``, True raises here
   without a card.
@@ -22,10 +24,19 @@ from genome_assembly_tpu.experiments.runner import (
 from genome_assembly_tpu.graph.build import (
     build_overlap_graph as jax_build_overlap_graph,
 )
+from genome_assembly_tpu.graph.build import score_pairs as jax_score_pairs
 from genome_assembly_tpu.graph.cycles import remove_cycles as jax_remove_cycles
 from genome_assembly_tpu.graph.layout import walk_contigs as jax_walk_contigs
+from genome_assembly_tpu.models.overlap_graph import (
+    assemble_contigs_using_overlap_graphs as jax_assemble_contigs,
+)
 from genome_assembly_tpu.graph.topo import topological_order as jax_topo
-from genome_assembly_tpu_torch.core.dispatch import use_host_metrics
+from genome_assembly_tpu_torch.core.dispatch import (
+    MIN_DEVICE_PAIRS,
+    use_host_metrics,
+    use_host_pair_scoring,
+)
+from genome_assembly_tpu_torch.graph import build as port_build
 from genome_assembly_tpu_torch.experiments.runner import (
     test_assembly as run_assembly,
 )
@@ -46,6 +57,7 @@ from genome_assembly_tpu_torch.models.overlap_graph import (
     assemble_contigs_using_overlap_graphs,
 )
 from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+from genome_assembly_tpu_torch.utils.tracing import global_tracer
 
 
 def _genome(n=600, seed=0):
@@ -105,15 +117,84 @@ def test_device_true_needs_a_card():
         _run(device=True)
 
 
+def _cycles_three_ways():
+    """alive after the port's Python cycle removal, the JAX package's and
+    the port's C++ engine's, on one graph."""
+    reads, _ = _graph()
+    out = []
+    for build, remove, kw in (
+            (build_overlap_graph, remove_cycles, {"use_native": False}),
+            (jax_build_overlap_graph, jax_remove_cycles,
+             {"use_native": False}),
+            (build_overlap_graph, remove_cycles, {"use_native": True})):
+        g = build(reads, k=5, **({} if build is jax_build_overlap_graph
+                                 else {"device": "cpu"}))
+        removed = remove(g, **kw)
+        out.append((removed, g.alive.tolist()))
+    return out
+
+
 @pytest.mark.parametrize("call, item", [
-    (lambda: _run(device="cpu", use_native=False), "A9"),
-    (lambda: assemble_contigs_using_overlap_graphs(
-        _graph()[0], device="cpu", use_native=False), "A9"),
-    (lambda: remove_cycles(_graph()[1], use_native=False), "A9"),
+    (lambda: [_run(device="cpu", use_native=False),
+              _run(run=jax_run_assembly, use_native=False),
+              _run(device="cpu", use_native=True)], "A9"),
+    (lambda: [assemble_contigs_using_overlap_graphs(
+        _graph()[0], device="cpu", use_native=False),
+        jax_assemble_contigs(_graph()[0], use_native=False),
+        assemble_contigs_using_overlap_graphs(
+            _graph()[0], device="cpu", use_native=True)], "A9"),
+    (_cycles_three_ways, "A9"),
 ])
 def test_unported_values_name_their_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+    """The three values that raised naming ROADMAP A9 (`item`) before the
+    Python cycle removal was ported give the JAX package's Python-loop
+    results and the C++ engine's."""
+    port_python, jax_python, port_native = call()
+    if isinstance(port_python, tuple) and len(port_python) == 4:
+        # test_assembly: contigs, measures, details, reads
+        assert port_python[0] and port_python[1]
+        for got in (jax_python, port_native):
+            assert port_python[0] == got[0] and port_python[1] == got[1]
+            assert port_python[2] == got[2] and port_python[3] == got[3]
+        return
+    assert port_python
+    assert port_python == jax_python == port_native
+
+
+def test_reads_with_an_n_below_the_pair_threshold_get_the_engine_on_a_card():
+    """ROADMAP §C 3: on a CUDA device (a torch.device object; no card is
+    needed to ask the rule), fewer than 200,000 pairs of reads with PAD
+    inside their lengths go to the C++ scorer, the JAX package's answer on
+    every backend there; everything else on a card takes the kernels."""
+    cuda = torch.device("cuda")
+    rule = use_host_pair_scoring
+    assert MIN_DEVICE_PAIRS == 200_000
+    assert rule(cuda, 0, True) and rule(cuda, MIN_DEVICE_PAIRS - 1, True)
+    assert not rule(cuda, MIN_DEVICE_PAIRS, True)
+    assert not rule(cuda, 10, False) and not rule(cuda, 10**7, False)
+    cpu = torch.device("cpu")
+    assert all(rule(cpu, n, pad) for n in (0, 10**7) for pad in (0, 1))
+    # score_pairs on a CUDA device object: reads with an internal N take the
+    # host route without touching a card, and answer as the JAX package
+    unique = ["ACGTACGTAC", "CGTACNTTTT", "ACNNACGTAC", "NNACGTAC"]
+    ia = np.repeat(np.arange(4, dtype=np.int32), 4)
+    ib = np.tile(np.arange(4, dtype=np.int32), 4)
+    tracer = global_tracer()
+    tracer.reset()
+    got = port_build._score_pairs_impl(unique, ia, ib, cuda)
+    assert list(tracer.times) == ["score.pairs.host"]
+    want = jax_score_pairs(unique, (ia, ib))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if torch.cuda.is_available():
+        return
+    # reads padded past their lengths carry no N: they go for the card,
+    # which is absent here
+    tracer.reset()
+    with pytest.raises((AssertionError, RuntimeError)):
+        port_build._score_pairs_impl(["ACGTAC", "AC"], ia[:2], ib[:2] % 2,
+                                     cuda)
+    assert "score.pairs.host" not in tracer.times
 
 
 def _walk_with_placements(build, remove, topo, walk):

@@ -70,7 +70,7 @@ def test_build_overlap_graph_edges_match_jax(k, route, monkeypatch):
         # the route a CUDA device takes, on the CPU: the all-pairs scorer
         # (its plain version) over U x U, then the gather
         monkeypatch.setattr(dispatch, "use_host_pair_scoring",
-                            lambda device: False)
+                            lambda device, *rule: False)
     g = port_build.build_overlap_graph(reads, k=k, device="cpu")
     assert g.unique_reads == g0.unique_reads
     np.testing.assert_array_equal(g.counts, g0.counts)
@@ -87,7 +87,7 @@ def test_sparse_route_beyond_dense_limit_is_not_ported(monkeypatch):
     scores the candidates alone, and the all-pairs scorer is not called."""
     _, reads = _reads(3, n=60)
     monkeypatch.setattr(dispatch, "use_host_pair_scoring",
-                        lambda device: False)
+                        lambda device, *rule: False)
     monkeypatch.setattr(port_build, "DENSE_MAX_U", 4)
 
     def no_dense(*args, **kwargs):
@@ -113,7 +113,7 @@ def test_dense_route_scores_unpadded_u_by_u(monkeypatch):
         return real(codes, lengths, **kw)
 
     monkeypatch.setattr(dispatch, "use_host_pair_scoring",
-                        lambda device: False)
+                        lambda device, *rule: False)
     monkeypatch.setattr(overlap_allpairs, "overlap_scores_all_pairs", spy)
     port_build.build_overlap_graph(reads, k=0, device="cpu")
     assert shapes == [(len(unique), max(len(r) for r in unique))]

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on a
 card: the all-pairs and the pair-list overlap kernels and the two
-Smith-Waterman kernels.
+Smith-Waterman kernels; and, on the card, the routes of reads with an N
+below the pair threshold, the string-graph and unitig pipelines, the gapped
+overlap DP and the device samplers.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -534,3 +536,97 @@ def test_spawn_pool_on_the_card_equals_sequential_runs(cuda_device,
     alone = [runner.run_for_params(p, path=str(tmp_path),
                                    **copy.deepcopy(kw)) for p in configs]
     assert pooled == alone
+
+
+def _n_reads(rs, count, with_n):
+    # distinct reads of 30..60 bases from a 2,000 bp genome; with_n puts an
+    # N at every 50th base, so overlapping reads put N against N
+    chars = np.array(list("ACGT"))[rs.randint(0, 4, size=2000)]
+    if with_n:
+        chars[::50] = "N"
+    genome = "".join(chars)
+    reads = {}
+    while len(reads) < count:
+        s = rs.randint(0, 1940)
+        reads.setdefault(genome[s:s + rs.randint(30, 61)])
+    return list(reads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_n", [True, False])
+def test_score_pairs_gives_reads_with_an_n_the_engine_below_the_threshold(
+        with_n, cuda_device):
+    # below 200,000 pairs, reads with an N get the C++ scorer's answer (the
+    # JAX package's there) and launch nothing; reads without one take the
+    # all-pairs kernel, diagonal included, with the same answer
+    from genome_assembly_tpu_torch.core.encoding import encode_batch
+    from genome_assembly_tpu_torch.graph.build import score_pairs
+    from genome_assembly_tpu_torch.native import graphcore
+
+    unique = _n_reads(np.random.RandomState(12), 300, with_n)
+    ia, ib = (x.ravel().astype(np.int32) for x in np.meshgrid(
+        np.arange(300), np.arange(300), indexing="ij"))
+    before = oa.launches, op.launches
+    s, e = score_pairs(unique, (ia, ib), device=cuda_device)
+    left, lens = encode_batch(unique, align="left")
+    want_s, want_e = graphcore.overlap_nogap_pairs(left, lens, ia, ib)
+    assert np.array_equal(s, want_s) and np.array_equal(e, want_e)
+    launched = (oa.launches - before[0], op.launches - before[1])
+    assert launched == ((0, 0) if with_n else (1, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", ["string graph", "unitig"])
+def test_alt_pipelines_on_the_card_equal_the_host_runs(pipeline,
+                                                       cuda_device):
+    import random
+
+    from genome_assembly_tpu_torch.models import string_graph, unitig
+
+    r = random.Random(21)
+    genome = "".join(r.choice("ACGT") for _ in range(1500))
+    reads = [genome[s:s + 50] for s in (r.randint(0, 1450)
+                                        for _ in range(150))]
+    reads += reads[:10]                     # duplicates: self-pairs
+    run = (string_graph.assemble_contigs_string if pipeline == "string graph"
+           else unitig.assemble_contigs)
+    before = oa.launches
+    got = run(reads, device=cuda_device)
+    assert oa.launches == before + 1
+    assert got == run(reads, device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("indel", [-2, -1, -(2**25)])
+def test_overlap_align_full_on_the_card_equals_the_host_run(indel,
+                                                            cuda_device):
+    rs = np.random.RandomState(31)
+    a, al = _batch(rs, 64, 40)
+    b, bl = _batch(rs, 64, 40)
+    b[:32] = a[32:]                          # related pairs: gaps pay off
+    bl[:32] = al[32:]
+    got = op.overlap_align_full(*_to(cuda_device, a, al, b, bl), indel=indel)
+    want = op.overlap_align_full(*_to("cpu", a, al, b, bl), indel=indel)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_device_samplers_keep_their_contract_on_the_card(cuda_device):
+    import importlib.util
+    import os
+
+    from genome_assembly_tpu_torch.simulate import (
+        inject_errors_device,
+        sample_reads_device,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    genome = torch.randint(0, 4, (3000,), dtype=torch.int8,
+                           generator=torch.Generator().manual_seed(2))
+    assert smoke.sampler_contract(sample_reads_device, inject_errors_device,
+                                  genome.to(cuda_device), 80, 500, 0.1,
+                                  7) == []

@@ -389,7 +389,7 @@ def test_sparse_route_of_score_pairs_matches_jax(k, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(dispatch, "use_host_pair_scoring",
-                        lambda device: False)
+                        lambda device, *rule: False)
     monkeypatch.setattr(port_build, "DENSE_MAX_U", 4)
     monkeypatch.setattr(op, "overlap_scores_pairs", spy)
     ia, ib = port_build.candidate_pairs_arrays(unique, k, device="cpu")
