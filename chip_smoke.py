@@ -93,7 +93,26 @@ Phases, each printed with the elapsed seconds as it ends:
    (dense) and pair-list (sparse) versions, and N-free reads on both
    kernels, the all-pairs route with self-pairs; 7d ``overlap_align_full``
    on the card equal to its CPU run and the C++ full DP at indel -2, -1
-   and -2**25, and the device samplers held to their contract, each timed.
+   and -2**25, and the device samplers held to their contract, each timed;
+8. the parallel layer (``genome_assembly_tpu_torch/parallel``): one world
+   of 8 ranks spawned on the card with gloo (the kernels built first), as
+   the JAX README's make_mesh(8), and one of 1 rank on NCCL. 8a
+   ``sharded_pipeline_step`` at the README's size (PhiX, l=100, N=8192,
+   p=0.01, mesh 8), equal to the plain all-pairs version on the reads
+   rebuilt by its generator rule and to their coverage; 8b
+   ``sharded_pipeline_step_reads`` on those reads at meshes 1, 2, 4 and 8,
+   bit-identical and equal to one all-pairs launch; 8c
+   ``all_pairs_block_scores_2d`` at 2x2 and 2x4; 8d
+   ``distributed_assemble_contigs`` on phase 4's reads at meshes 1 and 8,
+   equal to phase 4's contigs, with the host layout timed apart; 8e
+   ``pipelined_candidates_score`` on a 2-rank stage mesh, equal to the
+   unpipelined composition and the plain pair-list version; 8f both seqpar
+   variants at meshes 4 and 8 on the long genome against 64 of phase 4b's
+   contigs, equal to the row scan on the replicated genome (each rank's
+   code slice by fingerprint) and to the full-width SW kernel, and the
+   seqpar traceback on 8 items. The NCCL world repeats 8b and 8c at mesh 1
+   and 8f on one rank. Each step prints its wall, each rank's peak device
+   memory, the kernels' launches and the collectives.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -1584,6 +1603,630 @@ def new_pipelines(log, genome: str, card_line: str, sm_clock_hz: float,
     return errs
 
 
+# Phase 8: the parallel layer (genome_assembly_tpu_torch/parallel) in one
+# world of PARALLEL_RANKS ranks sharing the one card (gloo: the JAX
+# README's make_mesh(8)), and in a world of one rank on NCCL.
+PARALLEL_RANKS = 8
+# README.md's sharded_pipeline_step: PhiX, l = 100, N = 8,192, p = 0.01
+PARALLEL_STEP = {"read_length": 100, "num_reads": 8192, "error_prob": 0.01,
+                 "seed": 0}
+PARALLEL_MESHES = (1, 2, 4, 8)
+PARALLEL_MESHES_2D = ((2, 2), (2, 4))
+PARALLEL_PIPELINE = {"k": 5, "cap": 32, "n_micro": 4}
+# 8f: the long genome against 64 of phase 4b's contigs, longest first of
+# those of at most 2,048 bases; R = 8 rows an exchange (the JAX default)
+SEQPAR = {"items": 64, "max_len": 2048, "rows": 8, "meshes": (4, 8),
+          "traceback_items": 8}
+PARALLEL_TIMEOUT_S = 900
+# the assembly's stages that distributed_assemble_contigs traces
+LAYOUT_STAGES = ("graph.remove_cycles", "graph.topo_sort",
+                 "graph.walk_contigs")
+
+
+def digest(t) -> int:
+    """A 64-bit fingerprint of an integer tensor's values in order: the sum
+    of value_i * w_i mod 2**64, the w_i drawn in chunks of 2**24 from a
+    torch generator seeded 0 on the tensor's device. Two tensors of one
+    shape whose values differ get the same fingerprint only by a
+    coincidence of 64-bit sums."""
+    import torch
+
+    flat = t.reshape(-1)
+    gen = torch.Generator(device=flat.device).manual_seed(0)
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    chunk = 1 << 24
+    for lo in range(0, flat.numel(), chunk):
+        part = flat[lo:lo + chunk].to(torch.int64)
+        w = torch.randint(-2**63, 2**63 - 1, part.shape, generator=gen,
+                          device=flat.device, dtype=torch.int64)
+        total += (part * w).sum()
+    return int(total)
+
+
+def step_reads(inp: dict):
+    """Phase 8a's reads, lengths and starts: what each mesh member draws in
+    sharded_pipeline_step (inp["step"], on inp["ranks"] ranks) from a
+    generator seeded inp["step"]["seed"] on inp["device"], by the rule its
+    docstring states, in axis order."""
+    import torch
+
+    from genome_assembly_tpu_torch.parallel.sharded import split_generator
+    from genome_assembly_tpu_torch.simulate import inject_errors_device
+    from genome_assembly_tpu_torch.simulate.reads import reads_at_starts
+
+    st, n_dev = inp["step"], inp["ranks"]
+    device = torch.device(inp["device"], 0) if inp["device"] == "cuda" \
+        else torch.device("cpu")
+    genome = torch.as_tensor(inp["phix"], device=device)
+    gens = split_generator(
+        torch.Generator(device=device).manual_seed(st["seed"]), n_dev,
+        device)
+    reads, lens, starts = [], [], []
+    for gen in gens:
+        s = torch.randint(0, genome.shape[0], (st["num_reads"] // n_dev,),
+                          generator=gen, device=device)
+        r, ln = reads_at_starts(genome, s, st["read_length"])
+        reads.append(inject_errors_device(gen, r, ln, st["error_prob"]))
+        lens.append(ln)
+        starts.append(s.to(torch.int32))
+    return torch.cat(reads), torch.cat(lens), torch.cat(starts)
+
+
+def coverage(starts, lens, genome_len: int):
+    """Per-base read coverage from the starts' difference array."""
+    import torch
+
+    delta = torch.zeros(genome_len + 1, dtype=torch.int64,
+                        device=starts.device)
+    delta.index_add_(0, starts.long(), torch.ones_like(starts.long()))
+    delta.index_add_(0, (starts + lens).long(), -torch.ones_like(starts.long()))
+    return torch.cumsum(delta, 0)[:genome_len].to(torch.int32)
+
+
+def seqpar_inputs(queries: list[str], lg: str, pad_to: int):
+    """8f's queries and lengths, the genome padded with PAD to a multiple of
+    `pad_to`, and its true length."""
+    import numpy as np
+
+    from genome_assembly_tpu_torch.core.encoding import encode, encode_batch
+
+    q, ql = encode_batch(queries)
+    g = encode(lg)
+    g_pad = np.full(-(-len(g) // pad_to) * pad_to, 4, np.int8)
+    g_pad[:len(g)] = g
+    return q, ql, g_pad, len(g)
+
+
+def row_scan(q, ql, g_pad, g_len: int):
+    """The plain row scan (ops/smith_waterman.py::local_align_batch) of
+    every query against the whole genome, on the queries' device: best,
+    best_i, best_j, and the codes without the j = 0 column, padded with 0
+    to the padded genome's width (the seqpar codes' layout)."""
+    import torch
+
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    b = q.shape[0]
+    genome = g_pad[:g_len][None].expand(b, -1).contiguous()
+    best, bi, bj, codes = sw.local_align_batch(
+        q, ql, genome, torch.full((b,), g_len, dtype=torch.int32,
+                                  device=q.device))
+    codes = torch.nn.functional.pad(codes[:, :, 1:],
+                                    (0, g_pad.shape[0] - g_len))
+    return best, bi, bj, codes
+
+
+def exact(got, want) -> tuple[bool, int]:
+    """(all equal, max abs err) of two sequences of integer tensors."""
+    import torch
+
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    return all(torch.equal(g, w) for g, w in zip(got, want)), err
+
+
+class Steps:
+    """Phase 8's steps on one rank: each runs after a barrier, between
+    zeroed launch and collective counts, and leaves its wall, peak device
+    memory, launches and collectives in `records`."""
+
+    def __init__(self, device):
+        self.device = device
+        self.records = {}
+
+    def run(self, name: str, fn):
+        import torch
+        import torch.distributed as dist
+
+        from genome_assembly_tpu_torch.ops import overlap as op
+        from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+        from genome_assembly_tpu_torch.ops import smith_waterman as sw
+        from genome_assembly_tpu_torch.parallel import _comm
+        from genome_assembly_tpu_torch.utils.tracing import global_tracer
+
+        card = self.device.type == "cuda"
+        dist.barrier()
+        if card:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.device)
+        oa.launches = op.launches = 0
+        sw.full_width_launches = sw.banded_launches = 0
+        _comm.collectives = 0
+        global_tracer().reset()
+        t = time.perf_counter()
+        result = fn()
+        if card:
+            torch.cuda.synchronize(self.device)
+        self.records[name] = rec = {
+            "wall": time.perf_counter() - t,
+            "peak": (torch.cuda.max_memory_allocated(self.device) if card
+                     else None),
+            "launches": {"overlap_allpairs": oa.launches,
+                         "overlap_pairs": op.launches,
+                         "sw_full_width": sw.full_width_launches},
+            "collectives": _comm.collectives,
+            "member": result is not None,
+        }
+        return result, rec
+
+
+def parallel_rank(inp: dict) -> dict:
+    """Phase 8a-8f on one rank of the gloo world. Every rank returns its
+    records, its results' fingerprints and 8f's comparison of its code
+    slices with the row scan's; rank 0 also 8a's and 8e's results, 8b's and
+    8c's comparisons with its own all-pairs launch on all the reads, and
+    8f's tracebacks."""
+    import torch
+    import torch.distributed as dist
+
+    from genome_assembly_tpu_torch import parallel
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.parallel.seqpar import (
+        gather_codes,
+        traceback_host_seqpar,
+    )
+    from genome_assembly_tpu_torch.parallel.sharded import DIAGONAL_SCORE
+    from genome_assembly_tpu_torch.utils.tracing import global_tracer
+
+    rank = dist.get_rank()
+    dev = parallel.make_mesh(device=inp["device"]).device
+    steps = Steps(dev)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(dev), "steps": steps.records}
+    st = inp["step"]
+
+    def mesh_of(n, axis_name="data"):
+        return parallel.make_mesh(n, axis_name=axis_name,
+                                  device=inp["device"])
+
+    # 8a: the step at the README's size
+    phix = torch.as_tensor(inp["phix"], device=dev)
+    mesh8 = mesh_of(inp["ranks"])
+    gen = torch.Generator(device=dev).manual_seed(st["seed"])
+    res, rec = steps.run("8a", lambda: parallel.sharded_pipeline_step(
+        mesh8, gen, phix, st["read_length"], st["num_reads"],
+        st["error_prob"]))
+    rec["digest"] = [digest(x) for x in res]
+    if rank == 0:
+        out["8a"] = [x.cpu() for x in res]
+    del res
+
+    # 8b, 8c: the same reads, fixed, at every mesh; rank 0 holds each
+    # result against one launch of the all-pairs kernel on all the reads
+    reads, lens, starts = step_reads(inp)
+    g_len = phix.shape[0]
+    ref = None
+    if rank == 0:
+        ref = [*oa.overlap_scores_block(reads, lens, reads, lens),
+               coverage(starts, lens, g_len)]
+    for n in inp["meshes"]:
+        mesh = mesh_of(n)
+        res, rec = steps.run(f"8b mesh {n}", lambda: (
+            parallel.sharded_pipeline_step_reads(mesh, reads, lens, starts,
+                                                 g_len)))
+        if res is not None:
+            rec["digest"] = [digest(x) for x in res]
+            if rank == 0:
+                rec["equal"], rec["max_abs_err"] = exact(res, ref)
+        del res
+    if rank == 0:
+        ref[0].fill_diagonal_(DIAGONAL_SCORE)
+    for rows, cols in inp["meshes_2d"]:
+        mesh = parallel.make_mesh_2d(rows, cols, device=inp["device"])
+        res, rec = steps.run(f"8c {rows}x{cols}", lambda: (
+            parallel.all_pairs_block_scores_2d(mesh, reads, lens)))
+        if res is not None:
+            rec["digest"] = [digest(x) for x in res]
+            if rank == 0:
+                rec["equal"], rec["max_abs_err"] = exact(res, ref[:2])
+        del res
+    del ref
+
+    # 8d: the distributed assembly of phase 4's reads
+    for n in (1, inp["ranks"]):
+        mesh = mesh_of(n)
+        res, rec = steps.run(f"8d mesh {n}", lambda: (
+            parallel.distributed_assemble_contigs(mesh, inp["reads4"], k=K)))
+        if res is not None:
+            rec["summary"] = contig_summary(res)
+            times = global_tracer().as_dict()
+            rec["build_s"] = times["graph.build"]["seconds"]
+            rec["layout_s"] = sum(times[s]["seconds"] for s in LAYOUT_STAGES)
+
+    # 8e: the two-stage pipeline on 8a's reads
+    mesh = mesh_of(2, axis_name="stage")
+    res, rec = steps.run("8e", lambda: parallel.pipelined_candidates_score(
+        mesh, reads, lens, **inp["pipeline"]))
+    if res is not None:
+        rec["digest"] = [digest(x.to(torch.int32)) for x in res]
+        if rank == 0:
+            out["8e"] = [x.cpu() for x in res]
+    del res
+
+    # 8f: sequence-parallel SW on the long genome
+    q, ql, g_pad, g_len = seqpar_inputs(inp["queries"], inp["lg"],
+                                        inp["ranks"])
+    q, ql = torch.as_tensor(q, device=dev), torch.as_tensor(ql, device=dev)
+    g_pad = torch.as_tensor(g_pad, device=dev)
+    n_pad = q.shape[1]
+    sp = inp["seqpar"]
+    # every rank holds its slices against the row scan's, exactly
+    ref = row_scan(q, ql, g_pad, g_len)
+    for n in sp["meshes"]:
+        mesh = mesh_of(n)
+        rowwise, rec_r = steps.run(f"8f per-row mesh {n}", lambda: (
+            parallel.local_align_batch_seqpar(mesh, q, ql, g_pad, g_len)))
+        piped, rec_p = steps.run(f"8f pipelined mesh {n}", lambda: (
+            parallel.local_align_batch_seqpar_pipelined(
+                mesh, q, ql, g_pad, g_len,
+                rows_per_exchange=sp["rows"])))
+        if rowwise is None:
+            continue
+        gb = g_pad.shape[0] // n
+        off = mesh.axis_index("data") * gb
+        for rec, res in ((rec_r, rowwise), (rec_p, piped)):
+            rec["best"] = [x.cpu().numpy() for x in res[:3]]
+            rec["codes_shape"] = tuple(res[3].shape)
+            rec["equal"], rec["max_abs_err"] = exact(
+                [*res[:3], res[3][:n_pad]],
+                [*ref[:3], ref[3][:, :, off:off + gb]])
+        if n == max(sp["meshes"]):
+            t = sp["traceback_items"]
+            codes = gather_codes(mesh, rowwise[3][:, :t].contiguous())
+            if rank == 0:
+                bi, bj = rowwise[1].tolist(), rowwise[2].tolist()
+                out["8f tracebacks"] = [traceback_host_seqpar(
+                    codes[:, b, :].cpu().numpy(), bi[b], bj[b],
+                    inp["queries"][b], inp["lg"]) for b in range(t)]
+            del codes
+        del rowwise, piped
+    return out
+
+
+def nccl_rank(inp: dict) -> dict:
+    """Phase 8 in a world of one rank on NCCL: 8b's step and 8c's dense
+    scores at mesh 1 (fingerprints), and 8f's two seqpar variants at mesh 1
+    (the whole genome on one rank) against the row scan; records."""
+    import torch
+    import torch.distributed as dist
+
+    from genome_assembly_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(1, device=inp["device"])
+    steps = Steps(mesh.device)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "steps": steps.records}
+    reads, lens, starts = step_reads(inp)
+    g_len = len(inp["phix"])
+    res, rec = steps.run("8b mesh 1", lambda: (
+        parallel.sharded_pipeline_step_reads(mesh, reads, lens, starts,
+                                             g_len)))
+    rec["digest"] = [digest(x) for x in res]
+    res, rec = steps.run("8c 1-D", lambda: parallel.all_pairs_block_scores(
+        mesh, reads, lens))
+    rec["digest"] = [digest(x) for x in res]
+    del res
+    q, ql, g_pad, g_len = seqpar_inputs(inp["queries"], inp["lg"], 1)
+    args = [torch.as_tensor(x, device=mesh.device) for x in (q, ql, g_pad)]
+    ref = row_scan(*args, g_len)
+    for name, fn, kw in (
+            ("8f per-row", parallel.local_align_batch_seqpar, {}),
+            ("8f pipelined", parallel.local_align_batch_seqpar_pipelined,
+             {"rows_per_exchange": inp["seqpar"]["rows"]})):
+        res, rec = steps.run(name, lambda: fn(mesh, *args, g_len, **kw))
+        rec["equal"], rec["max_abs_err"] = exact(
+            [*res[:3], res[3][:q.shape[1]]], ref)
+        del res
+        rec["device_ops"] = device_ops(lambda: fn(mesh, *args, g_len, **kw))
+    return out
+
+
+def device_ops(fn):
+    """The kernels, copies and memsets that one call of fn() puts on the
+    card, counted in a torch.profiler trace (None where the trace holds
+    no device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def parallel_config(device="cuda", sm_clock_hz: float = 1.98e9) -> dict:
+    """Phase 8's sizes and device, passed to every rank, and the SM clock
+    its bounds take."""
+    return {"device": device, "ranks": PARALLEL_RANKS, "step": PARALLEL_STEP,
+            "meshes": PARALLEL_MESHES, "meshes_2d": PARALLEL_MESHES_2D,
+            "pipeline": PARALLEL_PIPELINE, "seqpar": SEQPAR,
+            "nccl": "nccl" if device == "cuda" else "gloo",
+            "sm_clock_hz": sm_clock_hz}
+
+
+def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
+                  long_contigs, card_line: str, config=None):
+    """Phase 8, run from the parent: the gloo world of PARALLEL_RANKS ranks
+    on the card (8a-8f), the one-rank NCCL world, then every check against
+    the references computed here on the card. `contigs4_summary`: phase
+    4's contigs (the single-device assembly of `reads4`). `config`:
+    ``parallel_config()`` (sizes and device; a CPU rehearsal passes smaller
+    ones and device "cpu", where no kernel launches and the one-rank world
+    uses gloo). Returns the max abs err of each kernel's checks by name, or
+    None at the first failure (logged)."""
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.core.encoding import encode
+    from genome_assembly_tpu_torch.ops import overlap as op
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+    from genome_assembly_tpu_torch.parallel.pipeline import (
+        candidates_score_unpipelined,
+    )
+    from genome_assembly_tpu_torch.parallel.sharded import DIAGONAL_SCORE
+    from genome_assembly_tpu_torch.parallel.spawn import spawn
+
+    cfg = config or parallel_config()
+    card = cfg["device"] == "cuda"
+    dev = torch.device("cuda", 0) if card else torch.device("cpu")
+    n_ranks, sp = cfg["ranks"], cfg["seqpar"]
+    t8 = time.perf_counter()
+    queries = sorted((c for c in long_contigs if len(c) <= sp["max_len"]),
+                     key=len, reverse=True)[:sp["items"]]
+    inp = {**cfg, "phix": encode(genome), "reads4": reads4,
+           "queries": queries, "lg": long_genome()}
+    t = time.perf_counter()
+    ranks = spawn(parallel_rank, n_ranks, args=(inp,), device=cfg["device"],
+                  timeout_s=PARALLEL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t
+    t = time.perf_counter()
+    nccl = spawn(nccl_rank, 1, args=(inp,), device=cfg["device"],
+                 backend=cfg["nccl"], timeout_s=PARALLEL_TIMEOUT_S)[0]
+    nccl_s = time.perf_counter() - t
+    worlds = {(r["backend"], r["world"], r["device"]) for r in ranks}
+    log(f"phase 8 worlds: {n_ranks} ranks {sorted(worlds)} "
+        f"{gloo_s:.2f}s (spawn, CUDA contexts, steps 8a-8f); 1 rank "
+        f"({nccl['backend']}, world {nccl['world']}) {nccl_s:.2f}s; card "
+        f"{card_line}")
+    if worlds != {("gloo", n_ranks, str(dev))} or \
+            (nccl["backend"], nccl["world"]) != (cfg["nccl"], 1):
+        log("phase 8 FAILED: the worlds did not run on the expected backends")
+        return None
+    errs = {"overlap_allpairs": 0, "overlap_pairs": 0, "sw_full_width": 0}
+    failed = []
+
+    def report(step: str, extra: str = "", kernels=()):
+        """Log a step's records over the ranks; fail it when a kernel it
+        names was never launched or its members disagree."""
+        recs = [r["steps"][step] for r in ranks]
+        members = [r for r in recs if r["member"]]
+        launches = {k: sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
+        log(f"phase 8 {step}: wall {max(r['wall'] for r in recs):.3f}s "
+            f"(slowest of {len(members)} member ranks; gloo, world "
+            f"{n_ranks}), peak device memory a rank "
+            f"{[r['peak'] for r in recs]} B, launches {launches}, "
+            f"collectives a member rank {members[0]['collectives']}"
+            f"{extra}")
+        for k in kernels if card else ():
+            if launches[k] < 1:
+                failed.append(f"{step}: {k} never launched")
+        digests = {json.dumps(r.get("digest")) for r in members}
+        if len(digests) > 1:
+            failed.append(f"{step}: member ranks returned different results")
+        return members
+
+    def check(step: str, ok: bool, err: int, kernel: str):
+        errs[kernel] = max(errs[kernel], err)
+        if not ok:
+            failed.append(f"{step}: differs from its reference (max abs err "
+                          f"{err})")
+
+    # 8a: the step against the plain version on the rebuilt reads
+    reads, lens, starts = step_reads(inp)
+    t = time.perf_counter()
+    plain = [*oa.overlap_scores_block_plain(reads, lens, reads, lens),
+             coverage(starts, lens, len(genome))]
+    if card:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    got = [x.to(dev) for x in ranks[0]["8a"]]
+    shapes = [tuple(x.shape) for x in got]
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, plain))
+    check("8a", all(torch.equal(g, w) for g, w in zip(got, plain))
+          and shapes == [(cfg["step"]["num_reads"],) * 2] * 2
+          + [(len(genome),)], err,
+          "overlap_allpairs")
+    report("8a", f"; scores, ends, coverage {shapes} == the plain all-pairs "
+                 f"version on the reads rebuilt by the generator rule and "
+                 f"their starts' coverage: max abs err {err} (plain version "
+                 f"{plain_s:.2f}s)", kernels=("overlap_allpairs",))
+    plain_digest = [digest(x) for x in plain]
+    del got
+    # 8b: bit-identical over the meshes, equal to the plain version
+    for n in cfg["meshes"]:
+        members = report(f"8b mesh {n}", kernels=("overlap_allpairs",))
+        r0 = ranks[0]["steps"][f"8b mesh {n}"]
+        check(f"8b mesh {n}", r0["equal"]
+              and members[0]["digest"] == plain_digest, r0["max_abs_err"],
+              "overlap_allpairs")
+    plain[0].fill_diagonal_(DIAGONAL_SCORE)
+    masked_digest = [digest(x) for x in plain[:2]]
+    del plain
+    for rows, cols in cfg["meshes_2d"]:
+        step = f"8c {rows}x{cols}"
+        members = report(step, kernels=("overlap_allpairs",))
+        r0 = ranks[0]["steps"][step]
+        check(step, r0["equal"] and members[0]["digest"] == masked_digest,
+              r0["max_abs_err"], "overlap_allpairs")
+    # NCCL: the same step and dense scores on one rank
+    nccl_ok = (nccl["steps"]["8b mesh 1"]["digest"] == plain_digest[:3]
+               and nccl["steps"]["8c 1-D"]["digest"] == masked_digest)
+    # 8d: the distributed assembly equals the single-device one (phase 4)
+    want = contigs4_summary
+    for n in (1, n_ranks):
+        step = f"8d mesh {n}"
+        members = report(step, kernels=("overlap_pairs",))
+        summaries = [r["summary"] for r in members]
+        r0 = members[0]
+        log(f"phase 8 {step}: contigs {r0['summary']['contigs']}, sha256 "
+            f"{r0['summary']['sha256'][:12]}..; build (join, sharded "
+            f"scoring, fan-out) {r0['build_s']:.3f}s, host layout (cycles, "
+            f"topological order, walk) {r0['layout_s']:.3f}s on rank 0, "
+            f"{max(r['layout_s'] for r in members):.3f}s slowest")
+        if any(s != want for s in summaries):
+            failed.append(f"{step}: contigs differ from phase 4's: "
+                          f"{summaries[0]}")
+    # 8e: the pipeline against the unpipelined composition and the plain
+    # pair-list version on the card
+    members = report("8e", kernels=("overlap_pairs",))
+    got = [x.to(dev) for x in ranks[0]["8e"]]
+    pipe = cfg["pipeline"]
+    want = candidates_score_unpipelined(reads, lens, k=pipe["k"],
+                                        cap=pipe["cap"], device=dev)
+    cap = pipe["cap"]
+    a_idx = torch.arange(reads.shape[0], device=dev,
+                         dtype=torch.int32).repeat_interleave(cap)
+    b_idx = got[0].reshape(-1).clamp(min=0)
+    s_p, e_p = op.overlap_scores_pairs_plain(reads, lens, a_idx, b_idx)
+    valid = got[3]
+    plain_e = [torch.where(valid, s_p.reshape(-1, cap), 0),
+               torch.where(valid, e_p.reshape(-1, cap), 0)]
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got[1:3], plain_e))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    check("8e", same and err == 0, err, "overlap_pairs")
+    log(f"phase 8 8e: (cand, scores, ends, valid) "
+        f"{'==' if same else '!='} candidates_score_unpipelined on the card; "
+        f"{int(valid.sum())} valid slots of {valid.numel()}; scores and "
+        f"ends == the plain pair-list version: max abs err {err}")
+    del got, want, s_p, e_p
+    # 8f: seqpar against the row scan on the replicated genome and the
+    # full-width SW kernel
+    q, ql, g_pad, g_len = seqpar_inputs(queries, inp["lg"], n_ranks)
+    n_pad = q.shape[1]
+    tq, tql = torch.as_tensor(q, device=dev), torch.as_tensor(ql, device=dev)
+    g_codes = torch.as_tensor(g_pad[:g_len], device=dev)
+    t = time.perf_counter()
+    ref = sw.local_align_batch(
+        tq, tql, g_codes[None].expand(len(queries), -1).contiguous(),
+        torch.full((len(queries),), g_len, dtype=torch.int32, device=dev))
+    ref_s = time.perf_counter() - t
+    best_ref = [x.cpu().numpy() for x in ref[:3]]
+    sw.full_width_launches = 0
+    kern = sw.sw_full_width(tq, tql, g_codes,
+                            torch.full_like(tql, g_len))
+    kern_launches = sw.full_width_launches
+    kern = [x.cpu().numpy() for x in kern[:3]]
+    err = max(int(np.abs(a.astype(np.int64) - b).max())
+              for a, b in zip(kern, best_ref))
+    check("8f SW kernel", err == 0 and (kern_launches > 0 or not card), err,
+          "sw_full_width")
+    log(f"phase 8 8f: {len(queries)} queries (lengths "
+        f"{len(queries[-1])}-{len(queries[0])}, n_pad {n_pad}) against "
+        f"G = {g_len}: the row scan on the replicated genome {ref_s:.2f}s "
+        f"(codes {tuple(ref[3].shape)}); full-width SW kernel best/best_i/"
+        f"best_j == it: max abs err {err}, {kern_launches} launch(es)")
+    # the scan's bound: the DP cells the queries need at SW_OPS_PER_CELL int
+    # ops over 132 SMs x 64 lanes x the SM clock, against its bytes (the
+    # codes it writes, a byte a cell of the padded grid, and its inputs)
+    cells = int(ql.astype(np.int64).sum()) * g_len
+    ops_ms = SW_OPS_PER_CELL * cells / (SMS * INT32_LANES
+                                        * cfg["sm_clock_hz"]) * 1e3
+    n_bytes = n_pad * len(queries) * len(g_pad) + q.nbytes + ql.nbytes \
+        + len(g_pad)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"phase 8 8f seqpar bound: {cells} DP cells -> {ops_ms:.4f} ms; "
+        f"{n_bytes} B -> {bytes_ms:.4f} ms; bound "
+        f"{max(ops_ms, bytes_ms):.4f} ms by "
+        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}")
+    walls = {}
+    for n in sp["meshes"]:
+        for variant in ("per-row", "pipelined"):
+            step = f"8f {variant} mesh {n}"
+            members = report(step)
+            walls[step] = max(r["wall"] for r in members)
+            bests_ok = all(all(np.array_equal(a, b) for a, b in
+                               zip(r["best"], best_ref)) for r in members)
+            codes_ok = all(r["equal"] for r in members)
+            seqpar_err = max(r["max_abs_err"] for r in members)
+            log(f"phase 8 {step}: best, best_i, best_j "
+                f"{'==' if bests_ok else '!='} the row scan here; each "
+                f"rank's best and codes {members[0]['codes_shape']} "
+                f"{'==' if codes_ok else '!='} its slice of the row scan on "
+                f"the rank (max abs err {seqpar_err})")
+            if not (bests_ok and codes_ok):
+                failed.append(f"{step}: differs from the row scan")
+        log(f"phase 8 8f mesh {n}: per-row {walls[f'8f per-row mesh {n}']:.3f}"
+            f"s ({ranks[0]['steps'][f'8f per-row mesh {n}']['collectives']} "
+            f"collectives a rank) vs pipelined "
+            f"{walls[f'8f pipelined mesh {n}']:.3f}s "
+            f"({ranks[0]['steps'][f'8f pipelined mesh {n}']['collectives']} "
+            f"collectives a rank, R = {sp['rows']})")
+    tracebacks = ranks[0]["8f tracebacks"]
+    codes_np = ref[3][:, :len(tracebacks), :].cpu().numpy()
+    bi, bj = best_ref[1], best_ref[2]
+    want_tb = [sw.traceback_host(codes_np[:, b, :], int(bi[b]), int(bj[b]),
+                                 queries[b], inp["lg"])
+               for b in range(len(tracebacks))]
+    tb_ok = tracebacks == want_tb
+    log(f"phase 8 8f traceback_host_seqpar on {len(tracebacks)} items "
+        f"{'==' if tb_ok else '!='} traceback_host on the row scan's codes "
+        f"(alignment lengths {[len(a) for a, _, _ in tracebacks]})")
+    if not tb_ok:
+        failed.append("8f: tracebacks differ")
+    del ref, codes_np
+    if card:
+        torch.cuda.empty_cache()
+    nccl_ok &= all(nccl["steps"][step]["equal"]
+                   for step in ("8f per-row", "8f pipelined"))
+    log(f"phase 8 NCCL world (1 rank): "
+        + ", ".join(f"{s} {r['wall']:.3f}s (peak {r['peak']} B, "
+                    f"{r['collectives']} collectives, launches "
+                    f"{r['launches']}, device operations in a profiler "
+                    f"trace of one more call "
+                    f"{r.get('device_ops', 'not traced')})"
+                    for s, r in nccl["steps"].items())
+        + f"; results {'==' if nccl_ok else '!='} the gloo world's and the "
+          f"references")
+    if not nccl_ok:
+        failed.append("NCCL world: results differ")
+    if failed:
+        for msg in failed:
+            log(f"phase 8 FAILED: {msg}")
+        return None
+    log(f"phase 8 parallel layer passed: {time.perf_counter() - t8:.1f}s; "
+        f"max abs err {errs}; card {card_line}")
+    return errs
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2167,10 +2810,16 @@ def main() -> int:
     errs = new_pipelines(log, genome, card_line, sm_clock_hz)
     if errs is None:
         return 1
+    par_errs = parallel_path(log, genome, reads, contig_summary(contigs),
+                             long_contigs, card_line,
+                             parallel_config("cuda", sm_clock_hz))
+    if par_errs is None:
+        return 1
     for entry in kernels:
-        if entry["name"] in errs:
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       errs[entry["name"]])
+        for found in (errs, par_errs):
+            if entry["name"] in found:
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           found[entry["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"all phases passed; wall {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,10 @@ Module paths and public names mirror the JAX package:
                   (exact-parity and fast layouts), the string graph with its
                   Myers reduction, and the unitig pipeline
 - ``metrics``     assembly quality measures (N50, coverage, mismatch rates)
+- ``parallel``    meshes of ranks on ``torch.distributed``: sharded pair
+                  scoring and the pipeline step, sequence-parallel
+                  Smith-Waterman, the two-stage build pipeline, and a
+                  spawn launcher for ranks sharing one card
 - ``experiments`` ``test_assembly`` (one assemble-and-measure run) and
                   ``test_assembly_new_pipeline`` (its string-graph twin), the
                   sweep runners (``run_for_params``,

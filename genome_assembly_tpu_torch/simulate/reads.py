@@ -62,6 +62,16 @@ def sample_reads_device(generator: torch.Generator,
     g = genome_codes.shape[0]
     starts = torch.randint(0, g, (num_reads,), generator=generator,
                            device=dev)
+    return reads_at_starts(genome_codes, starts, read_length)
+
+
+def reads_at_starts(genome_codes: torch.Tensor, starts: torch.Tensor,
+                    read_length: int):
+    """The reads of `sample_reads_device` for given starts: (N, l) int8
+    windows of the genome from each start, PAD past each true length
+    min(l, G - start), and the (N,) int32 lengths."""
+    dev = genome_codes.device
+    g = genome_codes.shape[0]
     lengths = torch.clamp(g - starts, max=read_length)
     # genome padded by l PADs so every window is in bounds
     padded = torch.cat([genome_codes.to(torch.int8),

@@ -7,7 +7,10 @@
   on the card machine;
 - the entry points default to the card and raise without one;
 - a failed build of the C++ engine or of the kernel raises; nothing falls
-  back.
+  back;
+- the parallel layer: the spawned ranks' test entry module imports no JAX,
+  a mesh on the card raises without one, NCCL for ranks that share a card
+  raises rather than switching to gloo, and a failed or hung world raises.
 """
 
 import os
@@ -16,6 +19,7 @@ import random
 import re
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -177,3 +181,72 @@ def test_failed_pair_kernel_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="overlap_pairs.*failed"):
         overlap.load_kernel()
     assert overlap._LIB is None
+
+
+def test_parallel_workers_module_imports_no_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['genome_assembly_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch_parallel_workers\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'genome_assembly_tpu.')) for m, v in sys.modules.items() "
+        "if v is not None)\n"
+        "print('imported')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_mesh_on_the_card_raises_without_one():
+    from genome_assembly_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        make_mesh_hosts_chips,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for build in (make_mesh, lambda: make_mesh_2d(1, 1),
+                  make_mesh_hosts_chips):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+
+
+def test_nccl_for_ranks_sharing_a_card_raises(tmp_path):
+    import torch.distributed as dist
+
+    from genome_assembly_tpu_torch.parallel.mesh import (
+        init_distributed,
+        pick_backend,
+    )
+
+    assert pick_backend("cuda", 8, 1) == "gloo"
+    assert pick_backend("cuda", 1, 1) == "nccl"
+    assert pick_backend("cuda", 4, 4) == "nccl"
+    assert pick_backend("cpu", 2, 0) == "gloo"
+    with pytest.raises(ValueError, match="NCCL needs a card a rank"):
+        pick_backend("cuda", 2, 1, requested="nccl")
+    with pytest.raises(ValueError, match="NCCL needs a card a rank"):
+        init_distributed(f"file://{tmp_path / 'store'}", 2, 0, device="cpu",
+                         backend="nccl")
+    assert not dist.is_initialized()
+
+
+def test_a_failed_or_hung_world_raises(tmp_path):
+    import torch_parallel_workers as workers
+
+    from genome_assembly_tpu_torch.parallel.spawn import spawn
+
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        spawn(workers.fail_on, 2, args=(1,), device="cpu", timeout_s=120,
+              workdir=str(tmp_path))
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        spawn(workers.sleep, 2, args=(600,), device="cpu", timeout_s=10,
+              workdir=str(tmp_path))
+    assert time.monotonic() - t0 < 60

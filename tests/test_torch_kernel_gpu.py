@@ -630,3 +630,69 @@ def test_device_samplers_keep_their_contract_on_the_card(cuda_device):
     assert smoke.sampler_contract(sample_reads_device, inject_errors_device,
                                   genome.to(cuda_device), 80, 500, 0.1,
                                   7) == []
+
+
+def _parallel_cases(rs):
+    """The parallel layer's calls of the kernels on the card (4 ranks)."""
+    reads, lens = _batch(rs, 256, 150)
+    right = np.full_like(reads, 4)
+    for i, n in enumerate(lens):
+        right[i, 150 - n:] = reads[i, :n]
+    ia = rs.randint(0, 256, 1000).astype(np.int32)
+    ib = rs.randint(0, 256, 1000).astype(np.int32)
+    genome = rs.randint(0, 4, 400).astype(np.int8)
+    q, ql = _batch(rs, 12, 60)
+    return {
+        "reads": (reads, lens), "indexed": (right, reads, lens, ia, ib),
+        "seqpar": (q, ql, genome, 400),
+    }
+
+
+@pytest.mark.gpu
+def test_parallel_layer_on_the_card_equals_plain_versions(cuda_device,
+                                                          tmp_path):
+    """A 4-rank gloo world sharing the card, and a 1-rank NCCL world: the
+    all-pairs row blocks, the indexed pair scoring and the pipelined seqpar
+    against the plain versions on the card."""
+    import torch_parallel_workers as workers
+
+    from genome_assembly_tpu_torch.ops.smith_waterman import (
+        local_align_batch,
+    )
+    from genome_assembly_tpu_torch.parallel.spawn import spawn
+
+    inputs = _parallel_cases(np.random.RandomState(41))
+    cases = [
+        ("allpairs", ("1d", 4, "data"), "all_pairs_block_scores",
+         inputs["reads"], {}),
+        ("indexed", ("1d", 4, "data"), "sharded_overlap_scores_indexed",
+         inputs["indexed"], {}),
+        ("seqpar", ("1d", 4, "data"), "local_align_batch_seqpar_pipelined",
+         inputs["seqpar"], {"rows_per_exchange": 8, "gather_codes": True}),
+    ]
+    one = [(name, ("1d", 1, "data"), fn, args, kw)
+           for name, _, fn, args, kw in cases]
+    gloo = spawn(workers.run_cases, 4, args=(cases, "cuda"), device="cuda",
+                 timeout_s=300, workdir=str(tmp_path))
+    nccl = spawn(workers.run_cases, 1, args=(one, "cuda"), device="cuda",
+                 backend="nccl", timeout_s=300, workdir=str(tmp_path))
+    reads, lens = _to(cuda_device, *inputs["reads"])
+    s, e = oa.overlap_scores_block_plain(reads, lens, reads, lens)
+    s.fill_diagonal_(-(2**31) + 1)
+    right, left, ilens, ia, ib = _to(cuda_device, *inputs["indexed"])
+    ps, pe = op.overlap_scores_pairs_plain(left, ilens, ia, ib)
+    q, ql, genome, g_len = inputs["seqpar"]
+    refs = np.tile(genome[None], (len(ql), 1))
+    sw_out = local_align_batch(*_to(cuda_device, q, ql, refs,
+                                    np.full(len(ql), g_len, np.int32)))
+    want = {"allpairs": (s, e), "indexed": (ps, pe),
+            "seqpar": (*sw_out[:3], sw_out[3][:, :, 1:])}
+    for results in (gloo, nccl):
+        for out in results:
+            for name, ref in want.items():
+                got = out[name]
+                if name == "seqpar":
+                    got = [*got[:3], got[3][:q.shape[1]]]
+                for g, w in zip(got, ref):
+                    np.testing.assert_array_equal(g, w.cpu().numpy(),
+                                                  err_msg=name)
