@@ -7,10 +7,10 @@ Phases, each printed with the elapsed seconds as it ends:
 
 1. device: a CUDA card must be present (exit 1 otherwise); prints the
    card's name and power limit as nvidia-smi gives them;
-2. build: compiles the all-pairs and the pair-list overlap kernels and the
-   two Smith-Waterman kernels (nvcc, sm_90a, one call per source) and the
-   C++ graph engine (g++) from the sources in this checkout, all in
-   parallel;
+2. build: compiles the all-pairs and the pair-list overlap kernels, the
+   two Smith-Waterman kernels and the sequence-parallel SW's step kernel
+   (nvcc, sm_90a, one call per source) and the C++ graph engine (g++) from
+   the sources in this checkout, all in parallel;
 3. each kernel against its plain PyTorch version on the card, exact
    equality on every case. The overlap kernel: score and end (ragged,
    rectangular, non-default penalties, L=127, reads of length 0 and 1, a
@@ -108,11 +108,19 @@ Phases, each printed with the elapsed seconds as it ends:
    ``pipelined_candidates_score`` on a 2-rank stage mesh, equal to the
    unpipelined composition and the plain pair-list version; 8f both seqpar
    variants at meshes 4 and 8 on the long genome against 64 of phase 4b's
-   contigs, equal to the row scan on the replicated genome (each rank's
-   code slice by fingerprint) and to the full-width SW kernel, and the
-   seqpar traceback on 8 items. The NCCL world repeats 8b and 8c at mesh 1
-   and 8f on one rank. Each step prints its wall, each rank's peak device
-   memory, the kernels' launches and the collectives.
+   contigs, through the seqpar kernel on every member rank (two launches a
+   DP row per-row, one a step pipelined), equal to the row scan on the
+   replicated genome (each rank's code slice by fingerprint) and to the
+   full-width SW kernel, the kernel's first and last step and row on every
+   member rank held against the plain steps on copies of their inputs
+   (exact), and the seqpar traceback on 8 items. The NCCL world repeats 8b
+   and 8c at mesh 1 and 8f on one rank, where each variant must launch the
+   kernel exactly n_blocks or 2 n_pad times a call and put at most 8
+   n_blocks + 32 or 12 n_pad + 32 operations on the card, and times the
+   kernel (a launch and a call by CUDA events, a call in a profiler
+   trace), the plain steps and the full-width SW kernel on the same items.
+   Each step prints its wall, each rank's peak device memory, the kernels'
+   launches and the collectives.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -334,6 +342,11 @@ SW_SOURCE = "genome_assembly_tpu_torch/csrc/smith_waterman.cu"
 # XLA programs of the JAX package (not Pallas kernels)
 SW_FULL_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:157"
 SW_BANDED_REPLACES = "genome_assembly_tpu/ops/smith_waterman.py:176"
+SEQPAR_SOURCE = "genome_assembly_tpu_torch/csrc/seqpar.cu"
+# the per-device bodies of the JAX package's sequence-parallel SW (XLA
+# scans under shard_map, not Pallas kernels)
+SEQPAR_STEP_REPLACES = "genome_assembly_tpu/parallel/seqpar.py:193"
+SEQPAR_ROW_REPLACES = "genome_assembly_tpu/parallel/seqpar.py:49"
 # The SW kernels' fewest integer operations per DP cell (substitution
 # select, DPX max of the three moves with the 0 clamp, code select),
 # priced at 132 SMs x 64 int32 lanes x the SM clock.
@@ -1740,6 +1753,7 @@ class Steps:
 
         from genome_assembly_tpu_torch.ops import overlap as op
         from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+        from genome_assembly_tpu_torch.ops import seqpar as sq
         from genome_assembly_tpu_torch.ops import smith_waterman as sw
         from genome_assembly_tpu_torch.parallel import _comm
         from genome_assembly_tpu_torch.utils.tracing import global_tracer
@@ -1752,6 +1766,7 @@ class Steps:
             torch.cuda.reset_peak_memory_stats(self.device)
         oa.launches = op.launches = 0
         sw.full_width_launches = sw.banded_launches = 0
+        sq.step_launches = sq.row_launches = 0
         _comm.collectives = 0
         global_tracer().reset()
         t = time.perf_counter()
@@ -1764,11 +1779,149 @@ class Steps:
                      else None),
             "launches": {"overlap_allpairs": oa.launches,
                          "overlap_pairs": op.launches,
-                         "sw_full_width": sw.full_width_launches},
+                         "sw_full_width": sw.full_width_launches,
+                         "seqpar_step": sq.step_launches,
+                         "seqpar_row": sq.row_launches},
             "collectives": _comm.collectives,
             "member": result is not None,
         }
         return result, rec
+
+
+class SeqparCheck:
+    """While active, the seqpar wrappers hold the kernel against the plain
+    version on copies of the same inputs on the card: the pipelined
+    variant's first and last active step, and the per-row variant's first
+    and last row (pre and post). `checks`: (entry, max abs err) a held
+    call; `inputs`: copies of the first held call's inputs of each entry,
+    for `time_seqpar`. Used after the main path's counts were read, so its
+    launches do not count."""
+
+    def __enter__(self):
+        from genome_assembly_tpu_torch.ops import seqpar as sq
+
+        self.sq, self.checks, self.inputs = sq, [], {}
+        self.saved = (sq.seqpar_step, sq.seqpar_row_pre, sq.seqpar_row_post)
+        step, pre, post = self.saved
+
+        def checked_step(*a):
+            row0, slab, codes = a[2], a[8], a[9]
+            rows = slab.shape[1]
+            if row0 not in (0, codes.shape[0] - rows):
+                return step(*a)
+            return self._held("seqpar_step", step, sq.seqpar_step_plain, a,
+                              (6, 10, 11, 12), (9, slice(row0, row0 + rows)))
+
+        def checked_pre(*a):
+            if a[1] not in (1, a[0].shape[1]):
+                return pre(*a)
+            return self._held("seqpar_row_pre", pre,
+                              sq.seqpar_row_pre_plain, a, (7,))
+
+        def checked_post(*a):
+            if a[2] not in (1, a[0].shape[1]):
+                return post(*a)
+            return self._held("seqpar_row_post", post,
+                              sq.seqpar_row_post_plain, a, (7, 11, 12, 13,
+                                                            14))
+
+        sq.seqpar_step, sq.seqpar_row_pre, sq.seqpar_row_post = (
+            checked_step, checked_pre, checked_post)
+        return self
+
+    def _held(self, name, kernel, plain, args, mutable, rows=None):
+        import torch
+
+        copies = [x.clone() if torch.is_tensor(x) else x for x in args]
+        # the copies, as the plain version leaves them, replay the call in
+        # time_seqpar
+        self.inputs.setdefault(name, copies)
+        got = kernel(*args)
+        want = plain(*copies)
+        pairs = [(got, want)] + [(args[k], copies[k]) for k in mutable]
+        if rows is not None:
+            pairs.append((args[rows[0]][rows[1]], copies[rows[0]][rows[1]]))
+        self.checks.append((name, exact(*zip(*pairs))[1]))
+        return got
+
+    def __exit__(self, *exc):
+        sq = self.sq
+        sq.seqpar_step, sq.seqpar_row_pre, sq.seqpar_row_post = self.saved
+
+
+def held_seqpar(checks, per_row: bool, n_blocks: int) -> tuple[bool, int]:
+    """(enough calls held and all exact, max abs err) of a SeqparCheck's
+    list: both halves at two rows per-row; the first and the last step
+    (one when there is one block) pipelined."""
+    names = ({"seqpar_row_pre", "seqpar_row_post"} if per_row
+             else {"seqpar_step"})
+    mine = [err for name, err in checks if name in names]
+    need = 4 if per_row else min(2, n_blocks)
+    err = max(mine, default=0)
+    return len(mine) >= need and err == 0, err
+
+
+def time_seqpar(per_row: bool, call, inputs: dict, n_units: int,
+                reps: int = 10) -> dict:
+    """The seqpar kernel's time on the card at a call's inputs:
+    - the kernels' device time in a profiler trace of one call, in all
+      and per launch (None: the trace held no device time for them);
+    - CUDA events around `reps` back-to-back calls of the wrappers on one
+      recorded unit (a step; per-row, a row's pre and post) on copies of
+      its inputs (the kernel's work does not depend on the values), the
+      wrappers' host time included where it outlasts the kernel, and the
+      plain version's the same way; a call is `n_units` units;
+    - the call's wall by CUDA events.
+    "ms" is the profiler's time of a call where the trace has it, else
+    the events'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_assembly_tpu_torch.ops import seqpar as sq
+
+    if per_row:
+        pre, post = inputs["seqpar_row_pre"], inputs["seqpar_row_post"]
+        kernel = lambda: (sq.seqpar_row_pre(*pre), sq.seqpar_row_post(*post))
+        plain = lambda: (sq.seqpar_row_pre_plain(*pre),
+                         sq.seqpar_row_post_plain(*post))
+        names = ("seqpar_row_pre_kernel", "seqpar_row_post_kernel")
+    else:
+        args = inputs["seqpar_step"]
+        kernel = lambda: sq.seqpar_step(*args)
+        plain = lambda: sq.seqpar_step_plain(*args)
+        names = ("seqpar_step_kernel",)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def events_ms(fn, n=reps):
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    unit_ms = events_ms(kernel)
+    plain_unit_ms = events_ms(plain, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    entries = [e for e in prof.key_averages()
+               if any(n in e.key for n in names)]
+    device_us = sum(getattr(e, "device_time_total", 0) for e in entries)
+    traced = sum(e.count for e in entries)
+    call_ms = events_ms(call, 1)
+    return {"unit_ms": unit_ms, "events_ms": unit_ms * n_units,
+            "ms": device_us / 1e3 if device_us else unit_ms * n_units,
+            "plain_unit_ms": plain_unit_ms,
+            "plain_ms": plain_unit_ms * n_units,
+            "alone_ms": device_us / 1e3 if device_us else None,
+            "alone_launch_ms": (device_us / 1e3 / traced
+                                if device_us else None),
+            "traced_launches": traced, "call_ms": call_ms}
 
 
 def parallel_rank(inp: dict) -> dict:
@@ -1891,6 +2044,14 @@ def parallel_rank(inp: dict) -> dict:
             rec["equal"], rec["max_abs_err"] = exact(
                 [*res[:3], res[3][:n_pad]],
                 [*ref[:3], ref[3][:, :, off:off + gb]])
+        # the kernel against the plain steps on the rank, at the first and
+        # last step and row of one more call of each variant
+        with SeqparCheck() as held:
+            parallel.local_align_batch_seqpar(mesh, q, ql, g_pad, g_len)
+            parallel.local_align_batch_seqpar_pipelined(
+                mesh, q, ql, g_pad, g_len, rows_per_exchange=sp["rows"])
+        rec_r["held"] = rec_p["held"] = held.checks
+        del held
         if n == max(sp["meshes"]):
             t = sp["traceback_items"]
             codes = gather_codes(mesh, rowwise[3][:, :t].contiguous())
@@ -1912,6 +2073,7 @@ def nccl_rank(inp: dict) -> dict:
     import torch.distributed as dist
 
     from genome_assembly_tpu_torch import parallel
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
 
     mesh = parallel.make_mesh(1, device=inp["device"])
     steps = Steps(mesh.device)
@@ -1930,15 +2092,38 @@ def nccl_rank(inp: dict) -> dict:
     q, ql, g_pad, g_len = seqpar_inputs(inp["queries"], inp["lg"], 1)
     args = [torch.as_tensor(x, device=mesh.device) for x in (q, ql, g_pad)]
     ref = row_scan(*args, g_len)
-    for name, fn, kw in (
-            ("8f per-row", parallel.local_align_batch_seqpar, {}),
+    n_pad, rows = q.shape[1], inp["seqpar"]["rows"]
+    n_blocks = -(-n_pad // rows)
+    for name, fn, kw, units in (
+            ("8f per-row", parallel.local_align_batch_seqpar, {}, n_pad),
             ("8f pipelined", parallel.local_align_batch_seqpar_pipelined,
-             {"rows_per_exchange": inp["seqpar"]["rows"]})):
+             {"rows_per_exchange": rows}, n_blocks)):
         res, rec = steps.run(name, lambda: fn(mesh, *args, g_len, **kw))
         rec["equal"], rec["max_abs_err"] = exact(
-            [*res[:3], res[3][:q.shape[1]]], ref)
+            [*res[:3], res[3][:n_pad]], ref)
         del res
         rec["device_ops"] = device_ops(lambda: fn(mesh, *args, g_len, **kw))
+        with SeqparCheck() as held:
+            fn(mesh, *args, g_len, **kw)
+        rec["held"] = held.checks
+        if mesh.device.type == "cuda":
+            rec["timing"] = time_seqpar(
+                name == "8f per-row", lambda: fn(mesh, *args, g_len, **kw),
+                held.inputs, units)
+        del held
+    if mesh.device.type == "cuda":
+        # the full-width SW kernel on the same items and the whole genome
+        tq, tql, g = args
+        w_len = torch.full_like(tql, g_len)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        sw.sw_full_width(tq, tql, g[:g_len], w_len)
+        start.record()
+        for _ in range(3):
+            sw.sw_full_width(tq, tql, g[:g_len], w_len)
+        stop.record()
+        torch.cuda.synchronize()
+        out["sw_full_width_ms"] = start.elapsed_time(stop) / 3
     return out
 
 
@@ -1977,8 +2162,9 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
     4's contigs (the single-device assembly of `reads4`). `config`:
     ``parallel_config()`` (sizes and device; a CPU rehearsal passes smaller
     ones and device "cpu", where no kernel launches and the one-rank world
-    uses gloo). Returns the max abs err of each kernel's checks by name, or
-    None at the first failure (logged)."""
+    uses gloo). Returns the max abs err of each kernel's checks by name and
+    the seqpar kernels' entries of the kernels line (timed on the NCCL
+    rank; none on the CPU), or None at the first failure (logged)."""
     import numpy as np
     import torch
 
@@ -2018,7 +2204,8 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
             (nccl["backend"], nccl["world"]) != (cfg["nccl"], 1):
         log("phase 8 FAILED: the worlds did not run on the expected backends")
         return None
-    errs = {"overlap_allpairs": 0, "overlap_pairs": 0, "sw_full_width": 0}
+    errs = {"overlap_allpairs": 0, "overlap_pairs": 0, "sw_full_width": 0,
+            "seqpar_step": 0, "seqpar_row": 0}
     failed = []
 
     def report(step: str, extra: str = "", kernels=()):
@@ -2163,15 +2350,36 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
     n_bytes = n_pad * len(queries) * len(g_pad) + q.nbytes + ql.nbytes \
         + len(g_pad)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     log(f"phase 8 8f seqpar bound: {cells} DP cells -> {ops_ms:.4f} ms; "
-        f"{n_bytes} B -> {bytes_ms:.4f} ms; bound "
-        f"{max(ops_ms, bytes_ms):.4f} ms by "
-        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}")
+        f"{n_bytes} B -> {bytes_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by}")
+    n_blocks = -(-n_pad // sp["rows"])
     walls = {}
     for n in sp["meshes"]:
         for variant in ("per-row", "pipelined"):
             step = f"8f {variant} mesh {n}"
+            kernel = "seqpar_row" if variant == "per-row" else "seqpar_step"
             members = report(step)
+            held = [held_seqpar(r["held"], variant == "per-row", n_blocks)
+                    for r in members]
+            errs[kernel] = max([errs[kernel]] + [e for _, e in held])
+            per_rank = [r["launches"][kernel] for r in members]
+            log(f"phase 8 {step}: {kernel} kernel launches a member rank "
+                f"{per_rank}; its first and last "
+                f"{'rows' if variant == 'per-row' else 'steps'} on every "
+                f"member rank == the plain version on copies of their "
+                f"inputs: {all(ok for ok, _ in held)} (max abs err "
+                f"{max(e for _, e in held)}, "
+                f"{[len(r['held']) for r in members]} held calls a rank "
+                f"over both variants)")
+            if card and min(per_rank) < 1:
+                failed.append(f"{step}: a member rank did not launch the "
+                              f"{kernel} kernel")
+            if not all(ok for ok, _ in held):
+                failed.append(f"{step}: the {kernel} kernel differs from "
+                              f"its plain version")
             walls[step] = max(r["wall"] for r in members)
             bests_ok = all(all(np.array_equal(a, b) for a, b in
                                zip(r["best"], best_ref)) for r in members)
@@ -2207,6 +2415,48 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
         torch.cuda.empty_cache()
     nccl_ok &= all(nccl["steps"][step]["equal"]
                    for step in ("8f per-row", "8f pipelined"))
+    seqpar_kernels = []
+    for step, kernel, replaces, units, want, ops_cap in (
+            ("8f per-row", "seqpar_row", SEQPAR_ROW_REPLACES, n_pad,
+             2 * n_pad, 12 * n_pad + 32),
+            ("8f pipelined", "seqpar_step", SEQPAR_STEP_REPLACES, n_blocks,
+             n_blocks, 8 * n_blocks + 32)):
+        r = nccl["steps"][step]
+        ok, err = held_seqpar(r["held"], kernel == "seqpar_row", n_blocks)
+        errs[kernel] = max(errs[kernel], err)
+        launched, ops = r["launches"][kernel], r.get("device_ops")
+        if not ok:
+            failed.append(f"NCCL {step}: the {kernel} kernel differs from "
+                          f"its plain version (max abs err {err})")
+        if card and launched != want:
+            failed.append(f"NCCL {step}: {launched} {kernel} launches, "
+                          f"{want} expected")
+        if card and ops is not None and ops > ops_cap:
+            failed.append(f"NCCL {step}: {ops} device operations a call, "
+                          f"more than {ops_cap}")
+        t = r.get("timing")
+        if t is None:
+            continue
+        log(f"phase 8 NCCL {step} ({kernel}, {units} "
+            f"{'rows' if kernel == 'seqpar_row' else 'steps'} a call, "
+            f"{launched} launches in the main run, device operations a call "
+            f"{ops if ops is not None else 'not traced'} of at most "
+            f"{ops_cap}): the kernel alone in a profiler trace of one call "
+            f"{t['alone_ms']} ms over {t['traced_launches']} launches "
+            f"({t['alone_launch_ms']} ms a launch); the wrappers "
+            f"back-to-back {t['unit_ms']:.4f} ms a "
+            f"{'row (pre and post)' if kernel == 'seqpar_row' else 'step'} "
+            f"(CUDA events, x {units} -> {t['events_ms']:.3f} ms a call); "
+            f"the call {t['call_ms']:.3f} ms (CUDA events); the "
+            f"plain version {t['plain_unit_ms']:.4f} ms a unit -> "
+            f"{t['plain_ms']:.3f} ms; the full-width SW kernel on the same "
+            f"{len(queries)} items {nccl['sw_full_width_ms']:.3f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by}; card {card_line}")
+        seqpar_kernels.append({
+            "name": kernel, "route": "cuda", "source": SEQPAR_SOURCE,
+            "replaces": replaces, "launches": launched, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     log(f"phase 8 NCCL world (1 rank): "
         + ", ".join(f"{s} {r['wall']:.3f}s (peak {r['peak']} B, "
                     f"{r['collectives']} collectives, launches "
@@ -2224,7 +2474,7 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
         return None
     log(f"phase 8 parallel layer passed: {time.perf_counter() - t8:.1f}s; "
         f"max abs err {errs}; card {card_line}")
-    return errs
+    return errs, seqpar_kernels
 
 
 def main() -> int:
@@ -2273,6 +2523,7 @@ def main() -> int:
     from genome_assembly_tpu_torch.native import graphcore
     from genome_assembly_tpu_torch.ops import overlap as op
     from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import seqpar as sq
     from genome_assembly_tpu_torch.ops import smith_waterman as sw
     from genome_assembly_tpu_torch.simulate import (
         generate_error_free_reads,
@@ -2284,15 +2535,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- phase 2: build --------------------------------------------------
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         futures = [pool.submit(oa.load_kernel), pool.submit(op.load_kernel),
-                   pool.submit(sw.load_kernel), pool.submit(graphcore.load)]
+                   pool.submit(sw.load_kernel), pool.submit(sq.load_kernel),
+                   pool.submit(graphcore.load)]
         for f in futures:
             f.result()
     log(f"phase 2 build: nvcc overlap_allpairs "
         f"{_build.BUILD_SECONDS['overlap_allpairs']}s, nvcc overlap_pairs "
         f"{_build.BUILD_SECONDS['overlap_pairs']}s, nvcc smith_waterman "
-        f"{_build.BUILD_SECONDS['smith_waterman']}s, g++ graphcore "
+        f"{_build.BUILD_SECONDS['smith_waterman']}s, nvcc seqpar "
+        f"{_build.BUILD_SECONDS['seqpar']}s, g++ graphcore "
         f"{_build.BUILD_SECONDS['graphcore']}s (None: already built)")
 
     # ---- phase 3: kernel == plain version on the card --------------------
@@ -2810,11 +3063,13 @@ def main() -> int:
     errs = new_pipelines(log, genome, card_line, sm_clock_hz)
     if errs is None:
         return 1
-    par_errs = parallel_path(log, genome, reads, contig_summary(contigs),
-                             long_contigs, card_line,
-                             parallel_config("cuda", sm_clock_hz))
-    if par_errs is None:
+    par = parallel_path(log, genome, reads, contig_summary(contigs),
+                        long_contigs, card_line,
+                        parallel_config("cuda", sm_clock_hz))
+    if par is None:
         return 1
+    par_errs, seqpar_kernels = par
+    kernels += seqpar_kernels
     for entry in kernels:
         for found in (errs, par_errs):
             if entry["name"] in found:

@@ -5,7 +5,7 @@ from .encoding import (
     encode_batch,
     decode_batch,
 )
-from .config import ParamBounds, METRIC_NAMES, METRIC_LABELS
+from .config import AssemblyConfig, ParamBounds, METRIC_NAMES, METRIC_LABELS
 
 __all__ = [
     "PAD",
@@ -13,6 +13,7 @@ __all__ = [
     "decode",
     "encode_batch",
     "decode_batch",
+    "AssemblyConfig",
     "ParamBounds",
     "METRIC_NAMES",
     "METRIC_LABELS",

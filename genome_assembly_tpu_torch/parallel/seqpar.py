@@ -17,9 +17,11 @@ completed with two exchanges along the axis:
 
 Each rank tracks the first strict maximum over its own columns; one gather
 after the scan resolves the global winner by (value desc, row asc, rank
-asc), the reference's row-major first maximum. The per-row step is torch
-ops on the rank's device, launch-bound, and under gloo each exchange goes
-through host memory.
+asc), the reference's row-major first maximum. The DP work between two
+exchanges is ``ops/seqpar.py``'s: on a card a hand kernel
+(``csrc/seqpar.cu``), two launches a DP row here and one a step of the
+pipelined variant; on the CPU its plain torch version. Under gloo each
+exchange goes through host memory.
 
 ``local_align_batch_seqpar_pipelined`` skews the ranks one block of R rows
 apart (rank d works on row block t - d at step t): one (2, R, B) shift to
@@ -44,77 +46,32 @@ import numpy as np
 import torch
 
 from ..core.encoding import PAD
+from ..ops import seqpar as steps
 from . import _comm
 from .mesh import Mesh
 
-NEG = -(2**28)
-
-
-def _cascade(diag, up, left) -> torch.Tensor:
-    """The reference's cascade (aligners.py:122-132) as uint8 codes."""
-    return torch.where(
-        (diag >= up) & (diag >= left) & (diag >= 0), 1,
-        torch.where((up >= left) & (up >= 0), 2,
-                    torch.where(left >= 0, 3, 0))).to(torch.uint8)
-
 
 class _Block:
-    """One rank's block of the genome axis and the per-row arithmetic
-    both variants share."""
+    """One rank's block of the genome axis, its inputs on the rank's device
+    and its running best fold."""
 
-    def __init__(self, mesh: Mesh, axis: str, queries, q_len, genome_codes,
-                 g_len: int, match_score: int, mismatch: int, indel: int):
+    def __init__(self, mesh: Mesh, axis: str, queries, q_len, genome_codes):
         dev = mesh.device
-        self.queries = torch.as_tensor(queries, dtype=torch.int8, device=dev)
-        self.q_len = torch.as_tensor(q_len, dtype=torch.int32, device=dev)
+        self.queries = torch.as_tensor(queries, dtype=torch.int8,
+                                       device=dev).contiguous()
+        self.q_len = torch.as_tensor(q_len, dtype=torch.int32,
+                                     device=dev).contiguous()
         genome = torch.as_tensor(genome_codes, dtype=torch.int8, device=dev)
         self.index = mesh.axis_index(axis)
         self.n_dev = mesh.shape[axis]
-        gb = genome.shape[0] // self.n_dev
-        self.off = self.index * gb
-        self.ref = genome[self.off:self.off + gb][None, :]        # (1, Gb)
-        self.jglob = (self.off + 1 + torch.arange(
-            gb, dtype=torch.int32, device=dev))[None, :]          # 1-based
-        self.valid = self.jglob <= g_len
-        self.match, self.mismatch, self.indel = match_score, mismatch, indel
+        self.gb = genome.shape[0] // self.n_dev
+        self.off = self.index * self.gb
+        self.genome = genome[self.off:self.off + self.gb].contiguous()
         self.line = mesh.axis_line(axis)
         b = self.queries.shape[0]
         self.best = torch.zeros(b, dtype=torch.int32, device=dev)
         self.bi = torch.zeros(b, dtype=torch.int32, device=dev)
         self.bj = torch.zeros(b, dtype=torch.int32, device=dev)
-
-    def scan_row(self, prev, halo_diag, i: int):
-        """(diag, up, cummax of key) of row i from the previous row and
-        the diagonal halo."""
-        qc = self.queries[:, i - 1:i]
-        sub = torch.where(self.ref == qc, self.match,
-                          self.mismatch).to(torch.int32)
-        diag = torch.cat([halo_diag[:, None], prev[:, :-1]], dim=1) + sub
-        up = prev + self.indel
-        c0 = torch.clamp(torch.maximum(diag, up), min=0)
-        c0 = torch.where(self.valid, c0, 0)
-        run = torch.cummax(c0 - self.indel * self.jglob, dim=1).values
-        return diag, up, run
-
-    def row(self, run, cin):
-        """Row i's dp from its local cummax and the carry from the left."""
-        return torch.maximum(run, cin[:, None]) + self.indel * self.jglob
-
-    def codes(self, diag, up, row, halo_left, i: int) -> torch.Tensor:
-        """Row i's codes; folds its first strict maximum over this block's
-        columns into the running best."""
-        left = torch.cat([halo_left[:, None], row[:, :-1]], dim=1) + self.indel
-        code = _cascade(diag, up, left)
-        code = torch.where((row > 0) & self.valid, code, 0).to(torch.uint8)
-        masked = torch.where(self.valid, row, -1)
-        l_arg = torch.argmax(masked, dim=1)
-        l_max = masked.gather(1, l_arg[:, None])[:, 0]
-        improve = (l_max > self.best) & (i <= self.q_len)
-        self.best = torch.where(improve, l_max, self.best)
-        self.bi = torch.where(improve, i, self.bi)
-        self.bj = torch.where(improve, self.off + 1 + l_arg.to(torch.int32),
-                              self.bj)
-        return code
 
     def resolve(self):
         """The global row-major first strict maximum from every rank's
@@ -157,30 +114,34 @@ def local_align_batch_seqpar(mesh: Mesh, queries, q_len, genome_codes,
     local_align_batch`` on a replicated genome; codes this rank's
     (n_pad, B, Gp / D) uint8 slice of the global (n_pad, B, Gp) code
     tensor (no j = 0 column: the global codes[i-1, b, j-1] is the code of
-    cell (i, j)). None outside the mesh. Two exchanges a DP row.
+    cell (i, j)). None outside the mesh. Two exchanges a DP row, around
+    two launches (``ops/seqpar.py``: *pre*, *post*) on a card.
     """
     _check_genome(mesh, genome_codes, axis)
     if not mesh.member:
         return None
-    blk = _Block(mesh, axis, queries, q_len, genome_codes, g_len,
-                 match_score, mismatch, indel)
+    blk = _Block(mesh, axis, queries, q_len, genome_codes)
     b, n_pad = blk.queries.shape
+    steps.check_range(mesh.device, n_pad, genome_codes.shape[0], match_score,
+                      mismatch, indel)
     dev = mesh.device
-    left_of_me = (torch.arange(blk.n_dev, device=dev) < blk.index)[:, None]
-    prev = torch.zeros((b, blk.ref.shape[1]), dtype=torch.int32, device=dev)
+    pen = (match_score, mismatch, indel)
+    prev = torch.zeros((b, blk.gb), dtype=torch.int32, device=dev)
+    run = torch.empty_like(prev)
     halo = torch.zeros(b, dtype=torch.int32, device=dev)
-    codes = torch.empty((n_pad, b, blk.ref.shape[1]), dtype=torch.uint8,
-                        device=dev)
+    codes = torch.empty((n_pad, b, blk.gb), dtype=torch.uint8, device=dev)
     for i in range(1, n_pad + 1):
-        diag, up, run = blk.scan_row(prev, halo, i)
-        totals = _comm.all_gather(run[:, -1][None], blk.line)     # (D, B)
-        cin = torch.where(left_of_me, totals, NEG).max(dim=0).values
-        prev = blk.row(run, cin)
-        # this row's last column goes right: the left halo of row i and
-        # the diagonal halo of row i + 1
-        halo = _comm.ppermute_right(prev[:, -1].contiguous(), blk.line,
-                                    blk.index)
-        codes[i - 1] = blk.codes(diag, up, prev, halo, i)
+        total = steps.seqpar_row_pre(blk.queries, i, blk.genome, blk.off,
+                                     g_len, prev, halo, run, *pen)
+        totals = _comm.all_gather(total[None], blk.line)          # (D, B)
+        # post derives this row's left halo from the carry; the shift of
+        # the row's last column to the right is the next row's diagonal
+        # halo
+        last = steps.seqpar_row_post(
+            blk.queries, blk.q_len, i, blk.genome, blk.off, g_len,
+            blk.index, prev, halo, run, totals, codes[i - 1], blk.best,
+            blk.bi, blk.bj, *pen)
+        halo = _comm.ppermute_right(last, blk.line, blk.index)
     return (*blk.resolve(), codes)
 
 
@@ -193,9 +154,10 @@ def local_align_batch_seqpar_pipelined(mesh: Mesh, queries, q_len,
                                        indel: int = -1):
     """Row-block-pipelined variant of `local_align_batch_seqpar`: one
     (2, R, B) exchange to the right neighbour a step of R rows, n_pad / R +
-    D - 1 steps. Same outputs; the queries are padded with PAD to a
-    multiple of R = `rows_per_exchange` rows, and so are the codes' rows
-    (slice [:n_pad] to compare)."""
+    D - 1 steps, each one launch (``ops/seqpar.py::seqpar_step``) on a card.
+    Same outputs; the queries are padded with PAD to a multiple of R =
+    `rows_per_exchange` rows, and so are the codes' rows (slice [:n_pad] to
+    compare)."""
     _check_genome(mesh, genome_codes, axis)
     if not mesh.member:
         return None
@@ -203,40 +165,36 @@ def local_align_batch_seqpar_pipelined(mesh: Mesh, queries, q_len,
     b, n_pad = queries.shape
     rows = max(1, min(rows_per_exchange, n_pad))
     n_blocks = -(-n_pad // rows)
+    steps.check_range(mesh.device, n_blocks * rows, genome_codes.shape[0],
+                      match_score, mismatch, indel)
     pad = n_blocks * rows - n_pad
     if pad:
         queries = torch.cat([queries, torch.full(
             (b, pad), int(PAD), dtype=torch.int8, device=queries.device)],
             dim=1)
-    blk = _Block(mesh, axis, queries, q_len, genome_codes, g_len,
-                 match_score, mismatch, indel)
+    blk = _Block(mesh, axis, queries, q_len, genome_codes)
     dev = mesh.device
-    gb = blk.ref.shape[1]
-    codes = torch.empty((n_blocks * rows, b, gb), dtype=torch.uint8,
+    codes = torch.empty((n_blocks * rows, b, blk.gb), dtype=torch.uint8,
                         device=dev)
-    prev = torch.zeros((b, gb), dtype=torch.int32, device=dev)
+    prev = torch.zeros((b, blk.gb), dtype=torch.int32, device=dev)
     halo_diag0 = torch.zeros(b, dtype=torch.int32, device=dev)
     # (last columns, carries) of the block the left neighbour finished
     # last step; the rank at index 0 always holds zeros
     slab = torch.zeros((2, rows, b), dtype=torch.int32, device=dev)
     for t in range(n_blocks + blk.n_dev - 1):
         tb = t - blk.index
-        out = torch.zeros_like(slab)
         if 0 <= tb < n_blocks:
             if tb == 0:                 # dp row 0 is the zero boundary
                 prev.zero_()
                 halo_diag0.zero_()
-            for r in range(rows):
-                i = tb * rows + r + 1
-                halo_diag = halo_diag0 if r == 0 else slab[0, r - 1]
-                diag, up, run = blk.scan_row(prev, halo_diag, i)
-                cin = slab[1, r]
-                prev = blk.row(run, cin)
-                codes[i - 1] = blk.codes(diag, up, prev, slab[0, r], i)
-                out[0, r] = prev[:, -1]
-                out[1, r] = torch.maximum(cin, run[:, -1])
-        # an idle rank's right neighbour is idle at the next step too, so
-        # what an idle rank sends is never read
+            out = steps.seqpar_step(
+                blk.queries, blk.q_len, tb * rows, blk.genome, blk.off,
+                g_len, prev, halo_diag0, slab, codes, blk.best, blk.bi,
+                blk.bj, match_score, mismatch, indel)
+        else:
+            # an idle rank's right neighbour is idle at the next step too,
+            # so what an idle rank sends is never read
+            out = torch.zeros_like(slab)
         halo_diag0 = slab[0, rows - 1].clone()
         slab = _comm.ppermute_right(out, blk.line, blk.index)
     return (*blk.resolve(), codes)

@@ -37,12 +37,13 @@ from .mesh import DEFAULT_TIMEOUT_S, init_distributed
 
 
 def build_kernels() -> None:
-    """Build (or load) the three kernel libraries and the C++ engine."""
+    """Build (or load) the four kernel libraries and the C++ engine."""
     from ..native import graphcore
-    from ..ops import overlap, overlap_allpairs, smith_waterman
+    from ..ops import overlap, overlap_allpairs, seqpar, smith_waterman
 
     for load in (overlap_allpairs.load_kernel, overlap.load_kernel,
-                 smith_waterman.load_kernel, graphcore.load):
+                 smith_waterman.load_kernel, seqpar.load_kernel,
+                 graphcore.load):
         load()
 
 

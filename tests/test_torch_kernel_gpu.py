@@ -1,6 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on a
-card: the all-pairs and the pair-list overlap kernels and the two
-Smith-Waterman kernels; and, on the card, the routes of reads with an N
+card: the all-pairs and the pair-list overlap kernels, the two
+Smith-Waterman kernels and the sequence-parallel SW's step kernel (its
+steps in worlds simulated in order, and both variants on a one-rank world;
+the cases and harness of tests/test_torch_seqpar_kernel.py); and, on the
+card, the routes of reads with an N
 below the pair threshold, the string-graph and unitig pipelines, the gapped
 overlap DP and the device samplers.
 
@@ -17,6 +20,7 @@ import torch
 
 from genome_assembly_tpu_torch.ops import overlap as op
 from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+from genome_assembly_tpu_torch.ops import seqpar as sq
 from genome_assembly_tpu_torch.ops import smith_waterman as sw
 
 
@@ -696,3 +700,102 @@ def test_parallel_layer_on_the_card_equals_plain_versions(cuda_device,
                 for g, w in zip(got, ref):
                     np.testing.assert_array_equal(g, w.cpu().numpy(),
                                                   err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the seqpar kernel (csrc/seqpar.cu): its model's cases and harness, from
+# tests/test_torch_seqpar_kernel.py (which imports JAX only inside the
+# functions that need it)
+# ---------------------------------------------------------------------------
+
+class _SeqparKernel:
+    """The wrappers (on the card: the kernel) under the plain versions'
+    names."""
+
+    seqpar_step = staticmethod(sq.seqpar_step)
+    seqpar_row_pre = staticmethod(sq.seqpar_row_pre)
+    seqpar_row_post = staticmethod(sq.seqpar_row_post)
+
+
+def _seqpar_cases():
+    import test_torch_seqpar_kernel as model
+
+    return model, {**model.MODEL_CASES, "two tiles": model._two_tiles()}
+
+
+SEQPAR_CASES = ["ties", "pad inside", "past g_len", "two tiles"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("indel", [1, -1, -3])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("case", SEQPAR_CASES)
+def test_seqpar_step_kernel_equals_plain_step(case, rows, indel,
+                                              cuda_device):
+    """Every active step of every rank of a simulated world: the kernel's
+    outputs and updated state equal the plain step's on the card."""
+    model, cases = _seqpar_cases()
+    pair = model.Paired(model.PLAIN, _SeqparKernel)
+    sq.step_launches = 0
+    model.run_pipelined(pair.step, model.DEVICES.get(case, 2), cases[case],
+                        rows, (10, -1, indel), device=cuda_device)
+    torch.cuda.synchronize()
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    assert sq.step_launches == pair.steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("indel", [1, -1, -3])
+@pytest.mark.parametrize("case", SEQPAR_CASES)
+def test_seqpar_row_kernels_equal_plain_halves(case, indel, cuda_device):
+    model, cases = _seqpar_cases()
+    pair = model.Paired(model.PLAIN, _SeqparKernel)
+    sq.row_launches = 0
+    model.run_per_row(pair.pre, pair.post, model.DEVICES.get(case, 2),
+                      cases[case], (10, -1, indel), device=cuda_device)
+    torch.cuda.synchronize()
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    assert sq.row_launches == pair.steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+def test_seqpar_variants_on_a_one_rank_world_launch_the_kernel(variant,
+                                                               cuda_device):
+    """Both variants in this process (a one-rank world) on the card, at a
+    block of 50,000 columns (11 tiles): equal to the plain row scan, with
+    2 n_pad launches per call per-row and n_blocks pipelined."""
+    from genome_assembly_tpu_torch import parallel
+    model, _ = _seqpar_cases()
+    q, ql, g_pad, g_len = model._setup(4242, n_q=16, g_len=50_000, q_max=45,
+                                       pad_to=1)
+    mesh = parallel.make_mesh(1, device=cuda_device)
+    sq.step_launches = sq.row_launches = 0
+    n_pad = q.shape[1]
+    if variant == "per-row":
+        got = parallel.local_align_batch_seqpar(mesh, q, ql, g_pad, g_len)
+        assert (sq.row_launches, sq.step_launches) == (2 * n_pad, 0)
+    else:
+        got = parallel.local_align_batch_seqpar_pipelined(
+            mesh, q, ql, g_pad, g_len, rows_per_exchange=8)
+        assert (sq.row_launches, sq.step_launches) == (0, -(-n_pad // 8))
+    qd, qld, gd = _to(cuda_device, q, ql, g_pad[:g_len])
+    best, bi, bj, codes = sw.local_align_batch(
+        qd, qld, gd[None].expand(len(ql), -1).contiguous(),
+        torch.full((len(ql),), g_len, dtype=torch.int32, device=cuda_device))
+    for g, w in zip(got[:3], (best, bi, bj)):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3][:n_pad], codes[:, :, 1:])
+
+
+@pytest.mark.gpu
+def test_seqpar_refuses_scores_outside_the_kernels_range(cuda_device):
+    from genome_assembly_tpu_torch import parallel
+
+    model, _ = _seqpar_cases()
+    q, ql, g_pad, g_len = model.A
+    mesh = parallel.make_mesh(1, device=cuda_device)
+    for fn in (parallel.local_align_batch_seqpar,
+               parallel.local_align_batch_seqpar_pipelined):
+        with pytest.raises(ValueError, match="exact range"):
+            fn(mesh, q, ql, g_pad, g_len, indel=-(2**20))

@@ -213,7 +213,7 @@ def test_metric_variants_match_jax(tmp_path):
 
 def test_config_layer_matches_jax():
     """The port's bounds and metric names equal the JAX package's getters
-    (its ``consts`` shim, which the port does not copy)."""
+    (tests/test_torch_consts.py holds the port's copy of the getters)."""
     b = ParamBounds()
     for field in ("l", "n", "p"):
         assert getattr(b, f"lower_{field}") == getattr(
