@@ -8,9 +8,11 @@ Phases, each printed with the elapsed seconds as it ends:
 1. device: a CUDA card must be present (exit 1 otherwise); prints the
    card's name and power limit as nvidia-smi gives them;
 2. build: compiles the all-pairs and the pair-list overlap kernels, the
-   two Smith-Waterman kernels and the sequence-parallel SW's step kernel
-   (nvcc, sm_90a, one call per source) and the C++ graph engine (g++) from
-   the sources in this checkout, all in parallel;
+   two Smith-Waterman kernels and the sequence-parallel SW's kernel (nvcc,
+   sm_90a, one call per source) and the C++ graph engine (g++) from the
+   sources in this checkout, all in parallel, beside a cubin of the
+   sequence-parallel kernel whose ``nvcc -Xptxas -v`` registers, spills
+   and stack it prints;
 3. each kernel against its plain PyTorch version on the card, exact
    equality on every case. The overlap kernel: score and end (ragged,
    rectangular, non-default penalties, L=127, reads of length 0 and 1, a
@@ -113,12 +115,16 @@ Phases, each printed with the elapsed seconds as it ends:
    replicated genome (each rank's code slice by fingerprint) and to the
    full-width SW kernel, the kernel's first and last step and row on every
    member rank held against the plain steps on copies of their inputs
-   (exact), and the seqpar traceback on 8 items. The NCCL world repeats 8b
-   and 8c at mesh 1 and 8f on one rank, where each variant must launch the
-   kernel exactly n_blocks or 2 n_pad times a call and put at most 8
-   n_blocks + 32 or 12 n_pad + 32 operations on the card, and times the
-   kernel (a launch and a call by CUDA events, a call in a profiler
-   trace), the plain steps and the full-width SW kernel on the same items.
+   (exact; *pre* by its totals, its `run` being the kernel's scratch), and
+   the seqpar traceback on 8 items; it prints the kernel's launch geometry
+   at each 8f width (segments, cluster, blocks, shared memory, resident or
+   tiled, the clusters that fit at once). The NCCL world repeats 8b and 8c
+   at mesh 1 and 8f on one rank, where each variant must launch the kernel
+   exactly n_blocks or 2 n_pad times a call and put at most 8 n_blocks + 32
+   or 12 n_pad + 32 operations on the card, and times the kernel (a launch
+   and a call by CUDA events, a call in a profiler trace), the plain steps
+   and the full-width SW kernel on the same items, and splits one more
+   call's host time between the wrappers, the exchanges and the rest.
    Each step prints its wall, each rank's peak device memory, the kernels'
    launches and the collectives.
 
@@ -1788,19 +1794,124 @@ class Steps:
         return result, rec
 
 
+def ptxas_report(source: str, out_dir: str) -> dict:
+    """Registers, spills and stack frame of every kernel in a CUDA source,
+    from `nvcc -Xptxas -v` building a cubin of it beside the library (with
+    the library's flags)."""
+    import re
+
+    from genome_assembly_tpu_torch.ops.overlap_allpairs import (
+        NVCC_FLAGS,
+        _nvcc,
+    )
+
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                 "-fPIC")]
+    os.makedirs(out_dir, exist_ok=True)
+    name = os.path.splitext(os.path.basename(source))[0]
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+         os.path.join(out_dir, f"{name}.cubin"), source],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v {source} failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    out, kernel = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d((?:[a-z]+_)+kernel)(ILb([01])E)?",
+                          m.group(1))
+            kernel = k.group(1) + ("" if not k.group(2) else
+                                   "<true>" if k.group(3) == "1"
+                                   else "<false>")
+            out[kernel] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            out[kernel].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel]["registers"] = int(m.group(1))
+    return out
+
+
+def seqpar_geometry(widths: dict, items: int, card: bool) -> list[str]:
+    """What the seqpar kernel launches at each 8f width: segments, cluster,
+    blocks, threads, shared memory, resident or tiled, and (on a card) how
+    many clusters fit at once."""
+    from genome_assembly_tpu_torch.ops import seqpar as sq
+
+    lines = []
+    for label, gb in widths.items():
+        for kind, step in (("step", True), ("pre/post", False)):
+            geo = sq.plan(items, gb, step)
+            fit = ([sq.max_active_clusters(k, geo)
+                    for k in (("step",) if step else ("pre", "post"))]
+                   if card else "not measured")
+            lines.append(
+                f"{label} Gb {gb}: {kind} S = {geo.segments} segments of "
+                f"{geo.seg} columns, clusters of {geo.segments}, "
+                f"{geo.blocks} blocks of {sq.THREADS} threads, "
+                f"{geo.smem} B dynamic shared memory a block, "
+                + ("the dp row resident in shared memory for the step"
+                   if geo.resident else
+                   f"tiles of {sq.TILE} columns through global memory")
+                + f"; clusters that fit at once {fit}")
+    return lines
+
+
+class HostSplit:
+    """While active, sums the host seconds spent inside the seqpar wrappers
+    (checks, plan, launch) and inside the exchanges (all-gather, shift) of
+    the calls made."""
+
+    def __enter__(self):
+        from genome_assembly_tpu_torch.ops import seqpar as sq
+        from genome_assembly_tpu_torch.parallel import _comm
+
+        self.targets = [(sq, "seqpar_row_pre", "wrappers"),
+                        (sq, "seqpar_row_post", "wrappers"),
+                        (sq, "seqpar_step", "wrappers"),
+                        (_comm, "all_gather", "exchanges"),
+                        (_comm, "ppermute_right", "exchanges")]
+        self.seconds = {"wrappers": 0.0, "exchanges": 0.0}
+        self.saved = [getattr(m, n) for m, n, _ in self.targets]
+        for (m, n, kind), fn in zip(self.targets, self.saved):
+            setattr(m, n, self._timed(fn, kind))
+        return self
+
+    def _timed(self, fn, kind):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[kind] += time.perf_counter() - t
+        return timed
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.targets, self.saved):
+            setattr(m, n, fn)
+
+
 class SeqparCheck:
     """While active, the seqpar wrappers hold the kernel against the plain
     version on copies of the same inputs on the card: the pipelined
     variant's first and last active step, and the per-row variant's first
-    and last row (pre and post). `checks`: (entry, max abs err) a held
-    call; `inputs`: copies of the first held call's inputs of each entry,
-    for `time_seqpar`. Used after the main path's counts were read, so its
-    launches do not count."""
+    and last row (pre by its totals, `run` being the kernel's scratch; post
+    by everything it writes, its plain version reading the `run` the plain
+    pre left). `checks`: (entry, max abs err) a held call; `inputs`: copies
+    of the first held call's inputs of each entry, for `time_seqpar`. Used
+    after the main path's counts were read, so its launches do not count."""
 
     def __enter__(self):
         from genome_assembly_tpu_torch.ops import seqpar as sq
 
         self.sq, self.checks, self.inputs = sq, [], {}
+        self.plain_run = {}
         self.saved = (sq.seqpar_step, sq.seqpar_row_pre, sq.seqpar_row_post)
         step, pre, post = self.saved
 
@@ -1810,29 +1921,36 @@ class SeqparCheck:
             if row0 not in (0, codes.shape[0] - rows):
                 return step(*a)
             return self._held("seqpar_step", step, sq.seqpar_step_plain, a,
-                              (6, 10, 11, 12), (9, slice(row0, row0 + rows)))
+                              (6, 10, 11, 12),
+                              (9, slice(row0, row0 + rows)))[0]
 
         def checked_pre(*a):
             if a[1] not in (1, a[0].shape[1]):
                 return pre(*a)
-            return self._held("seqpar_row_pre", pre,
-                              sq.seqpar_row_pre_plain, a, (7,))
+            got, copies = self._held("seqpar_row_pre", pre,
+                                     sq.seqpar_row_pre_plain, a, ())
+            self.plain_run[a[1]] = copies[7]
+            return got
 
         def checked_post(*a):
             if a[2] not in (1, a[0].shape[1]):
                 return post(*a)
             return self._held("seqpar_row_post", post,
-                              sq.seqpar_row_post_plain, a, (7, 11, 12, 13,
-                                                            14))
+                              sq.seqpar_row_post_plain, a,
+                              (7, 11, 12, 13, 14),
+                              plain_args={9: self.plain_run.pop(a[2])})[0]
 
         sq.seqpar_step, sq.seqpar_row_pre, sq.seqpar_row_post = (
             checked_step, checked_pre, checked_post)
         return self
 
-    def _held(self, name, kernel, plain, args, mutable, rows=None):
+    def _held(self, name, kernel, plain, args, mutable, rows=None,
+              plain_args=None):
         import torch
 
         copies = [x.clone() if torch.is_tensor(x) else x for x in args]
+        for k, x in (plain_args or {}).items():
+            copies[k] = x
         # the copies, as the plain version leaves them, replay the call in
         # time_seqpar
         self.inputs.setdefault(name, copies)
@@ -1842,7 +1960,7 @@ class SeqparCheck:
         if rows is not None:
             pairs.append((args[rows[0]][rows[1]], copies[rows[0]][rows[1]]))
         self.checks.append((name, exact(*zip(*pairs))[1]))
-        return got
+        return got, copies
 
     def __exit__(self, *exc):
         sq = self.sq
@@ -2110,6 +2228,13 @@ def nccl_rank(inp: dict) -> dict:
             rec["timing"] = time_seqpar(
                 name == "8f per-row", lambda: fn(mesh, *args, g_len, **kw),
                 held.inputs, units)
+            torch.cuda.synchronize()
+            with HostSplit() as split:
+                t = time.perf_counter()
+                fn(mesh, *args, g_len, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            rec["host_split"] = {"wall": wall, **split.seconds}
         del held
     if mesh.device.type == "cuda":
         # the full-width SW kernel on the same items and the whole genome
@@ -2355,6 +2480,10 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
     log(f"phase 8 8f seqpar bound: {cells} DP cells -> {ops_ms:.4f} ms; "
         f"{n_bytes} B -> {bytes_ms:.4f} ms; bound {bound_ms:.4f} ms by "
         f"{bound_by}")
+    widths = {"NCCL rank, mesh 1": len(g_pad),
+              **{f"gloo mesh {n}": len(g_pad) // n for n in sp["meshes"]}}
+    for line in seqpar_geometry(widths, len(queries), card):
+        log(f"phase 8 8f seqpar geometry: {line}")
     n_blocks = -(-n_pad // sp["rows"])
     walls = {}
     for n in sp["meshes"]:
@@ -2452,6 +2581,15 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
             f"{t['plain_ms']:.3f} ms; the full-width SW kernel on the same "
             f"{len(queries)} items {nccl['sw_full_width_ms']:.3f} ms; bound "
             f"{bound_ms:.4f} ms by {bound_by}; card {card_line}")
+        h = r["host_split"]
+        log(f"phase 8 NCCL {step} host split of one more call: wall "
+            f"{h['wall'] * 1e3:.3f} ms (host clock, ends in a synchronise) = "
+            f"the seqpar wrappers {h['wrappers'] * 1e3:.3f} ms (checks, "
+            f"plan, launches enqueued) + the exchanges (all-gather, shift) "
+            f"{h['exchanges'] * 1e3:.3f} ms + the rest (the loop, "
+            f"allocations, the wait for the card) "
+            f"{(h['wall'] - h['wrappers'] - h['exchanges']) * 1e3:.3f} ms; "
+            f"the kernels on the card {t['alone_ms']} ms (profiler)")
         seqpar_kernels.append({
             "name": kernel, "route": "cuda", "source": SEQPAR_SOURCE,
             "replaces": replaces, "launches": launched, "max_abs_err": err,
@@ -2535,10 +2673,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- phase 2: build --------------------------------------------------
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         futures = [pool.submit(oa.load_kernel), pool.submit(op.load_kernel),
                    pool.submit(sw.load_kernel), pool.submit(sq.load_kernel),
-                   pool.submit(graphcore.load)]
+                   pool.submit(graphcore.load),
+                   pool.submit(ptxas_report, sq.SOURCE, _build.BUILD_DIR)]
         for f in futures:
             f.result()
     log(f"phase 2 build: nvcc overlap_allpairs "
@@ -2547,6 +2686,8 @@ def main() -> int:
         f"{_build.BUILD_SECONDS['smith_waterman']}s, nvcc seqpar "
         f"{_build.BUILD_SECONDS['seqpar']}s, g++ graphcore "
         f"{_build.BUILD_SECONDS['graphcore']}s (None: already built)")
+    for kernel, info in futures[-1].result().items():
+        log(f"phase 2 nvcc -Xptxas -v seqpar: {kernel} {info}")
 
     # ---- phase 3: kernel == plain version on the card --------------------
     genome = read_genome_from_fasta(GENOME)

@@ -15,11 +15,20 @@ plain version with the same arguments and results:
   ``row_step`` scan);
 - ``seqpar_row_pre`` / ``seqpar_row_post``: the per-row variant's two
   halves around the all-gather of the block totals (replace
-  ``parallel/seqpar.py:49`` ``_seqpar_body``'s ``step``). *pre* writes the
-  local cummax of the left chain's key into a scratch and returns the
-  block's total; *post* folds the gathered totals of the blocks left of
-  the rank into the carry, writes the row, its codes and the best fold,
+  ``parallel/seqpar.py:49`` ``_seqpar_body``'s ``step``). *pre* leaves the
+  local cummax of the left chain's key in the scratch ``run`` and returns
+  the block's total; *post* folds the gathered totals of the blocks left
+  of the rank into the carry, writes the row, its codes and the best fold,
   and returns the row's last column for the exchange.
+
+The kernel cuts an item's block into S segments, one thread block each,
+the S blocks of an item one cluster (``plan`` picks S and whether a
+step's segment stays in shared memory). ``run`` is the kernel's scratch
+between *pre* and *post*: the plain *pre* writes the whole local cummax
+there, the kernel only each segment's key total at the segment's last
+column, and *post* reads only those columns. The max of the totals of the
+segments left of a segment is the local cummax at the column before it, so
+the kernel's *post* gives the same row from either.
 
 *post* derives the row's left halo instead of waiting for the exchange
 that follows the row (``left_halo``): for a rank at index d >= 1 the left
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -50,10 +60,27 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "seqpar.cu")
 BUILD_TIMEOUT_S = 300
 NEG = -(2**28)
-# csrc kThreads and kChunk: a block of THREADS threads takes one item; each
-# thread scans CHUNK adjacent columns of a tile of THREADS * CHUNK columns
-THREADS = 512
-CHUNK = 9
+# csrc/seqpar.cu's geometry: a block of THREADS threads takes one segment;
+# each thread scans adjacent columns of it: TILE_CHUNK of a tile of TILE
+# columns walked through global memory, or up to MAX_CHUNK of a segment of
+# up to MAX_RESIDENT columns held in shared memory for a whole step. An
+# item's S <= MAX_CLUSTER segments are one cluster; RING rows of carries
+# between cluster barriers.
+THREADS = 256
+TILE_CHUNK = 15
+TILE = THREADS * TILE_CHUNK
+MAX_CHUNK = 63
+MAX_RESIDENT = THREADS * MAX_CHUNK
+MAX_CLUSTER = 8
+RING = 16
+# plan: B * S blocks fit BLOCKS_AN_SM blocks on each of the H100's SMS
+# streaming multiprocessors, each segment at least MIN_SEGMENT columns. The
+# step kernel is built for four blocks an SM (csrc kStepBlocksAnSm); three
+# leave room for the clusters' packing into GPCs, so all of an 8f call's
+# clusters fit at once.
+SMS = 132
+BLOCKS_AN_SM = 3
+MIN_SEGMENT = 1024
 # The kernel is exact while every dp value and key stays inside
 # (-RANGE, RANGE), well above NEG (check_range).
 RANGE = 2**27
@@ -63,6 +90,50 @@ step_launches = 0
 row_launches = 0
 
 _LIB = None
+
+
+class Geometry(NamedTuple):
+    """A launch's geometry: `segments` (S) blocks of THREADS threads and
+    `seg` columns an item (the last one narrower), one cluster an item, B *
+    S `blocks`; `resident`: a step's segment stays in shared memory (else
+    it walks tiles); `smem`: dynamic shared memory a block, bytes."""
+
+    segments: int
+    seg: int
+    resident: bool
+    blocks: int
+    smem: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(resident: bool, seg: int) -> int:
+    """csrc smem_bytes: a resident segment's dp row, genome codes and code
+    staging, or a streamed block's two tiles and staging; each region holds
+    its global data at the same address mod 16."""
+    if resident:
+        return _align16(4 * seg + 16) + 2 * _align16(seg + 16)
+    return 2 * (_align16(4 * TILE + 16) + _align16(TILE + 16)) \
+        + _align16(TILE + 16)
+
+
+def plan(b: int, gb: int, step: bool) -> Geometry:
+    """The kernel's geometry for B items on a block of Gb columns: the most
+    segments S <= MAX_CLUSTER, and <= Gb // MIN_SEGMENT, for which the B * S
+    blocks fit BLOCKS_AN_SM to a streaming multiprocessor (one wave), and
+    at least one; a step (`step`) takes enough segments for one to fit in
+    shared memory where MAX_CLUSTER of them can, and is resident when it
+    does."""
+    s = BLOCKS_AN_SM * SMS // max(b, 1)
+    s = max(1, min(MAX_CLUSTER, s, gb // MIN_SEGMENT))
+    if step:
+        s = max(s, min(MAX_CLUSTER, -(-gb // MAX_RESIDENT)))
+    seg = max(1, -(-gb // s))
+    s = max(1, -(-gb // seg))                # none empty
+    resident = step and seg <= MAX_RESIDENT
+    return Geometry(s, seg, resident, b * s, smem_bytes(resident, seg))
 
 
 def load_kernel():
@@ -81,22 +152,38 @@ def load_kernel():
         pen = [i, i, i]          # match, mismatch, indel
         tail = [vp, i]           # stream, device index
         lib.seqpar_step_launch.argtypes = head + [
-            i,                   # R
+            i, i, i, i,          # R, S, seg, resident
             vp, vp, vp, vp,      # prev, halo_diag0, slab in, slab out
             vp,                  # codes (rows of the step)
             vp, vp, vp] + pen + tail     # best, best_i, best_j
         lib.seqpar_row_pre_launch.argtypes = head + [
+            i, i,                # S, seg
             vp, vp, vp, vp] + pen + tail  # prev, halo_diag, run, total
         lib.seqpar_row_post_launch.argtypes = head + [
+            i, i,                # S, seg
             vp, vp, vp,          # prev, halo_diag, run
             vp, i, i,            # totals (D, B), D, index
             vp, vp,              # codes row, last column out
             vp, vp, vp] + pen + tail
+        lib.seqpar_constants.argtypes = [vp]
+        lib.seqpar_max_active_clusters.argtypes = [i, i, i, i, i, vp]
         for fn in (lib.seqpar_step_launch, lib.seqpar_row_pre_launch,
-                   lib.seqpar_row_post_launch):
+                   lib.seqpar_row_post_launch, lib.seqpar_constants,
+                   lib.seqpar_max_active_clusters):
             fn.restype = i
         _LIB = lib
     return _LIB
+
+
+def max_active_clusters(kind: str, geo: Geometry, device: int = 0) -> int:
+    """How many clusters of `geo` the card holds at once for the kernel of
+    `kind` ("step", "pre" or "post"; cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    err = load_kernel().seqpar_max_active_clusters(
+        ("step", "pre", "post").index(kind), geo.segments, int(geo.resident),
+        geo.seg, device, ctypes.byref(out))
+    _raise_on(err, f"{kind} occupancy")
+    return out.value
 
 
 def check_range(device, n_pad: int, gp: int, match_score: int,
@@ -338,12 +425,14 @@ def seqpar_step(queries, q_len, row0: int, genome, off: int, g_len: int,
     if b == 0 or rows == 0:
         return out.zero_()
     stream, index = _stream(dev)
+    geo = plan(b, gb, step=True)
     err = load_kernel().seqpar_step_launch(
         queries.data_ptr(), queries.shape[1], q_len.data_ptr(),
-        genome.data_ptr(), gb, off, g_len, b, row0 + 1, rows,
-        prev.data_ptr(), halo_diag0.data_ptr(), slab.data_ptr(),
-        out.data_ptr(), codes.data_ptr(), best.data_ptr(), bi.data_ptr(),
-        bj.data_ptr(), match_score, mismatch, indel, stream, index)
+        genome.data_ptr(), gb, off, g_len, b, row0 + 1, rows, geo.segments,
+        geo.seg, int(geo.resident), prev.data_ptr(), halo_diag0.data_ptr(),
+        slab.data_ptr(), out.data_ptr(), codes.data_ptr(), best.data_ptr(),
+        bi.data_ptr(), bj.data_ptr(), match_score, mismatch, indel, stream,
+        index)
     _raise_on(err, "step")
     step_launches += 1
     return out
@@ -352,8 +441,10 @@ def seqpar_step(queries, q_len, row0: int, genome, off: int, g_len: int,
 def seqpar_row_pre(queries, i: int, genome, off: int, g_len: int, prev,
                    halo_diag, run, match_score=10, mismatch=-1, indel=-1):
     """The per-row variant's first half for row i: the local cummax of the
-    left chain's key c0 - indel*j into `run` (B, Gb) int32, in place.
-    Returns the block totals run[:, -1] (B,) for the all-gather."""
+    left chain's key c0 - indel*j into the scratch `run` (B, Gb) int32, in
+    place (the kernel: each segment's total at its last column only; the
+    module docstring). Returns the block totals, the plain run[:, -1], (B,)
+    for the all-gather."""
     global row_launches
     if not 1 <= i <= queries.shape[1]:
         raise ValueError(f"row {i} outside 1..{queries.shape[1]}")
@@ -368,11 +459,12 @@ def seqpar_row_pre(queries, i: int, genome, off: int, g_len: int, prev,
     if b == 0:
         return total
     stream, index = _stream(dev)
+    geo = plan(b, gb, step=False)
     err = load_kernel().seqpar_row_pre_launch(
         queries.data_ptr(), queries.shape[1], None, genome.data_ptr(), gb,
-        off, g_len, b, i, prev.data_ptr(), halo_diag.data_ptr(),
-        run.data_ptr(), total.data_ptr(), match_score, mismatch, indel,
-        stream, index)
+        off, g_len, b, i, geo.segments, geo.seg, prev.data_ptr(),
+        halo_diag.data_ptr(), run.data_ptr(), total.data_ptr(), match_score,
+        mismatch, indel, stream, index)
     _raise_on(err, "row pre")
     row_launches += 1
     return total
@@ -383,9 +475,9 @@ def seqpar_row_post(queries, q_len, i: int, genome, off: int, g_len: int,
                     best, bi, bj, match_score=10, mismatch=-1, indel=-1):
     """The per-row variant's second half for row i, after the all-gather:
     folds the (D, B) `totals` of the blocks left of `index` into the carry,
-    writes the row into `prev` and its codes into `codes_row` (B, Gb)
-    uint8, and folds the best in place. Returns the row's last column (B,)
-    for the exchange to the right."""
+    with what *pre* left in `run`, writes the row into `prev` and its codes
+    into `codes_row` (B, Gb) uint8, and folds the best in place. Returns
+    the row's last column (B,) for the exchange to the right."""
     global row_launches
     if not 1 <= i <= queries.shape[1]:
         raise ValueError(f"row {i} outside 1..{queries.shape[1]}")
@@ -409,10 +501,12 @@ def seqpar_row_post(queries, q_len, i: int, genome, off: int, g_len: int,
     if b == 0:
         return last
     stream, dev_index = _stream(dev)
+    geo = plan(b, gb, step=False)
     err = load_kernel().seqpar_row_post_launch(
         queries.data_ptr(), queries.shape[1], q_len.data_ptr(),
-        genome.data_ptr(), gb, off, g_len, b, i, prev.data_ptr(),
-        halo_diag.data_ptr(), run.data_ptr(), totals.data_ptr(),
+        genome.data_ptr(), gb, off, g_len, b, i, geo.segments, geo.seg,
+        prev.data_ptr(), halo_diag.data_ptr(), run.data_ptr(),
+        totals.data_ptr(),
         totals.shape[0], index, codes_row.data_ptr(), last.data_ptr(),
         best.data_ptr(), bi.data_ptr(), bj.data_ptr(), match_score,
         mismatch, indel, stream, dev_index)

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on a
 card: the all-pairs and the pair-list overlap kernels, the two
-Smith-Waterman kernels and the sequence-parallel SW's step kernel (its
-steps in worlds simulated in order, and both variants on a one-rank world;
-the cases and harness of tests/test_torch_seqpar_kernel.py); and, on the
+Smith-Waterman kernels and the sequence-parallel SW's kernel (its steps
+in worlds simulated in order, at the geometries where its segments or its
+path change, and both variants on a one-rank world; the cases and harness
+of tests/test_torch_seqpar_kernel.py); and, on the
 card, the routes of reads with an N
 below the pair threshold, the string-graph and unitig pipelines, the gapped
 overlap DP and the device samplers.
@@ -786,6 +787,78 @@ def test_seqpar_variants_on_a_one_rank_world_launch_the_kernel(variant,
     for g, w in zip(got[:3], (best, bi, bj)):
         assert torch.equal(g, w)
     assert torch.equal(got[3][:n_pad], codes[:, :, 1:])
+
+
+def _seqpar_geometry_case(name):
+    """(inputs, ranks, rows a step) of the card-only geometries: 64 items
+    against the 50 kb genome's width on 1, 4 and 8 ranks (phase 8f's blocks
+    of 50,000, 12,500 and 6,250 columns, six segments each); a step's
+    segment past the shared memory a block holds (2 items of 140,000
+    columns: 8 segments of 17,500, tiled); one item (8 segments); 150
+    items, past the 132 SMs (steps of 4 segments of 12,500 columns, rows of
+    2 segments walking 7 tiles); and 40 rows a step, past the ring of
+    carries."""
+    model, _ = _seqpar_cases()
+    if name.startswith("8f mesh "):
+        return (model._setup(9101, n_q=64, g_len=50_000, q_max=20,
+                             pad_to=8), int(name.split()[-1]), 8)
+    if name == "past shared memory":
+        return model._setup(9102, n_q=2, g_len=140_000, q_max=20), 1, 8
+    if name == "B = 1":
+        return model._setup(9103, n_q=1, g_len=50_000, q_max=20), 1, 8
+    if name == "B = 150":
+        return model._setup(9104, n_q=150, g_len=50_000, q_max=12), 1, 8
+    if name == "R = 40":
+        return model._setup(9105, n_q=16, g_len=50_000, q_max=45), 1, 40
+    raise KeyError(name)
+
+
+SEQPAR_GEOMETRIES = ["8f mesh 1", "8f mesh 4", "8f mesh 8",
+                     "past shared memory", "B = 1", "B = 150", "R = 40"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+@pytest.mark.parametrize("name", SEQPAR_GEOMETRIES)
+def test_seqpar_kernel_at_its_geometries_equals_plain(name, variant,
+                                                     cuda_device):
+    """Every step and row of every rank against the plain steps on the
+    card, max abs err 0, where S, the resident and tiled paths and the
+    ring change."""
+    model, _ = _seqpar_cases()
+    inputs, n_dev, rows = _seqpar_geometry_case(name)
+    b, gb = inputs[0].shape[0], len(inputs[2]) // n_dev
+    geo = sq.plan(b, gb, variant == "pipelined")
+    assert geo.segments > 1
+    pair = model.Paired(model.PLAIN, _SeqparKernel)
+    sq.step_launches = sq.row_launches = 0
+    if variant == "per-row":
+        model.run_per_row(pair.pre, pair.post, n_dev, inputs, (10, -1, -1),
+                          device=cuda_device)
+    else:
+        model.run_pipelined(pair.step, n_dev, inputs, rows, (10, -1, -1),
+                            device=cuda_device)
+    torch.cuda.synchronize()
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    assert sq.step_launches + sq.row_launches == pair.steps
+
+
+@pytest.mark.gpu
+def test_seqpar_constants_equal_the_sources(cuda_device):
+    """ops/seqpar.py's copy of the kernel's constants and shared-memory
+    sizes (csrc seqpar_constants) equals the built source's; every 8f
+    geometry fits on the card."""
+    import ctypes
+
+    got = (ctypes.c_int * 7)()
+    sq.load_kernel().seqpar_constants(got)
+    assert list(got) == [sq.THREADS, sq.TILE_CHUNK, sq.MAX_CHUNK,
+                         sq.MAX_CLUSTER, sq.RING, sq.smem_bytes(False, 1),
+                         sq.smem_bytes(True, sq.MAX_RESIDENT)]
+    for width in (50_000, 12_500, 6_250):
+        for kind in ("step", "pre", "post"):
+            geo = sq.plan(64, width, kind == "step")
+            assert sq.max_active_clusters(kind, geo) > 0
 
 
 @pytest.mark.gpu

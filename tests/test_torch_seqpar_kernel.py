@@ -6,18 +6,27 @@ CUDA kernel (``csrc/seqpar.cu``), on the CPU.
   JAX package's ``local_align_batch_seqpar(_pipelined)`` at mesh 1 on
   tests/test_seqpar.py's shapes; composed over a world of 2 and 4 ranks
   simulated in this process, they equal them too.
-- ``KernelModel`` walks a row as the kernel does: tiles of threads x chunk
-  columns, each thread scanning its chunk of adjacent columns, the chunk
-  totals through warp scans by shuffles and one array of warp totals, the
-  exclusive prefix and the tiles' carry folded into each chunk, the row and
-  its codes thread-strided with the old dp row kept in place for the next
-  tile, each code written at the kernel's flat offset, and the best folded
-  by value, then the smaller column. At every step of every rank of the
-  simulated worlds the model's outputs equal the plain step's, on ties in
-  one row and across rows, PAD inside the genome, rows past q_len, columns
-  past g_len (a whole block past it), block widths no tile or chunk count
-  divides, indel +1, -1 and -3, and R = 1, 3 and 8; once at the kernel's
-  own geometry across two tiles. A model without the carry fold differs.
+- ``KernelModel`` walks a row as the kernel does: an item's block cut into
+  S segments (``ops/seqpar.py::plan``, or a given S), a step's segment
+  resident as one tile or any segment walked in tiles, each thread's chunk
+  of adjacent columns scanned, the chunk totals through warp scans by
+  shuffles and one array of warp totals, the carry into a segment from
+  the totals of the segments to its left (the step's look-back, *post*'s
+  reads of the segment totals *pre* left in `run`), both halos derived
+  from that carry, a chunk's first column by the reference's cascade and
+  the others by the row's equality with diag or up, and the best folded by
+  value, then column within a block and by value, then row, then column
+  across segments. At every step of every rank of the simulated worlds the
+  model's outputs equal the plain step's, its *post* reading the `run` its
+  own *pre* left (and the plain *pre*'s too), on ties in one row and
+  across rows, PAD inside the genome, rows past q_len, columns past g_len,
+  widths no tile, chunk or segment count divides, indel +1, -1 and -3,
+  R = 1, 3 and 8, with three resident segments and with two segments
+  walking tiles; at S = 1 and at 5 segments that do not divide the block;
+  with a segment wholly past g_len; on a tie across a segment boundary;
+  and at the kernel's own geometry at phase 8f's widths. A model without
+  the carry fold within a segment, without the carry across segments, or
+  folding the segments' best by arrival order differs.
 - In a spawned world of 4 CPU ranks (meshes 2 and 4, indel -1 and +1) the
   left halo that *post* derives (cin + indel * off, 0 on rank 0) equals the
   last column the exchange brings, row by row, on every rank.
@@ -37,7 +46,6 @@ import torch
 from genome_assembly_tpu_torch.core.encoding import PAD, encode, encode_batch
 from genome_assembly_tpu_torch.ops import seqpar as steps
 
-I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
 WORLD_TIMEOUT_S = 240
 
@@ -218,32 +226,45 @@ def run_pipelined(step, n_dev, inputs, rows, pen, device="cpu"):
 class Paired:
     """Step functions that run `other` on copies of the inputs and `ref`
     on the inputs, and count every step where an output or an updated
-    state differs (`diffs`; `steps` counts the steps)."""
+    state differs (`diffs`; `steps` counts the steps).
 
-    def __init__(self, ref, other):
+    `run` is the kernel's scratch between *pre* and *post* (ops/seqpar.py):
+    *pre* is held by its totals alone, and `other`'s *post* reads the `run`
+    its own *pre* left (`own_scratch`, as on a rank), or else the copy of
+    `ref`'s."""
+
+    def __init__(self, ref, other, own_scratch=True):
         self.ref, self.other = ref, other
+        self.own_scratch = own_scratch
+        self.scratch = {}
         self.diffs = self.steps = 0
 
-    def _run(self, name, args, mutable):
+    def _run(self, name, args, mutable, run=None):
         clones = [a.clone() if torch.is_tensor(a) else a for a in args]
+        if run is not None and self.own_scratch \
+                and id(args[run]) in self.scratch:
+            clones[run] = self.scratch[id(args[run])]
         got = getattr(self.other, name)(*clones)
         want = getattr(self.ref, name)(*args)
         same = torch.equal(got.cpu(), want.cpu()) and all(
             torch.equal(clones[k].cpu(), args[k].cpu()) for k in mutable)
         self.steps += 1
         self.diffs += not same
-        return want
+        return want, clones
 
     def step(self, *args):
         # prev, codes, best, bi, bj
-        return self._run("seqpar_step", args, (6, 9, 10, 11, 12))
+        return self._run("seqpar_step", args, (6, 9, 10, 11, 12))[0]
 
     def pre(self, *args):
-        return self._run("seqpar_row_pre", args, (7,))         # run
+        want, clones = self._run("seqpar_row_pre", args, ())
+        self.scratch[id(args[7])] = clones[7]
+        return want
 
     def post(self, *args):
         # prev, codes row, best, bi, bj
-        return self._run("seqpar_row_post", args, (7, 11, 12, 13, 14))
+        return self._run("seqpar_row_post", args, (7, 11, 12, 13, 14),
+                         run=9)[0]
 
 
 class _Plain:
@@ -259,93 +280,98 @@ PLAIN = _Plain()
 # the numpy model of csrc/seqpar.cu
 # ---------------------------------------------------------------------------
 
-class KernelModel:
-    """The kernel's traversal in numpy, every item's block at once (the
-    blocks are independent and take the same path). `threads`, `chunk`
-    and `warp`: the kernel's kThreads, kChunk and the warp width; the
-    tests also run smaller ones, so that small rows cross many tiles,
-    chunks and warps. `fold_carry=False` drops the fold of the threads
-    and tiles before a chunk (the negative control)."""
+def _cascade(diag, up, left):
+    return np.where((diag >= up) & (diag >= left) & (diag >= 0), 1,
+                    np.where((up >= left) & (up >= 0), 2,
+                             np.where(left >= 0, 3, 0)))
 
-    def __init__(self, threads=steps.THREADS, chunk=steps.CHUNK, warp=32,
-                 fold_carry=True):
+
+class KernelModel:
+    """The kernel's traversal in numpy, every item at once (the items'
+    clusters are independent and take the same path).
+
+    An item's block of Gb columns is cut into S segments of `seg` columns
+    (``steps.plan``, or `segments` of them), one thread block each. A
+    block's row is walked in chunks of adjacent columns, one a thread: a
+    step's segment resident in shared memory as one tile of an odd
+    ceil(seg / threads) columns a thread (seg <= threads * max_chunk), any
+    other segment in tiles of threads * tile_chunk columns. Pass 1 scans a
+    chunk's keys; the chunk totals join by warp scans by shuffles and one
+    array of warp totals; the carry into a segment is the max of the totals
+    of the segments left of it (the step's look-back through the cluster,
+    *post*'s reads of `run`) and of the rank's carry; pass 2 writes the
+    row, a chunk's first column by the reference's cascade and every other
+    by the row's own equality with diag or up, and each thread's first
+    strict maximum above the running best, which the block folds by value,
+    then column. A segment's left halo is its carry + indel * (its first j
+    - 1), its diagonal halo the one of the row before (the old row's at a
+    step's first row). The segments' candidates are folded by value, then
+    row, then column. `threads`, `tile_chunk`, `max_chunk` and `warp`: the
+    kernel's kThreads, kTileChunk, kMaxChunk and the warp width; the tests
+    also run smaller ones, so that small rows cross many segments, tiles,
+    chunks and warps.
+
+    Negative controls: `fold_carry=False` drops the fold of the threads and
+    tiles before a chunk; `segment_carry=False` the totals of the segments
+    to the left; `fold="arrival"` folds the segments' candidates in the
+    order they come, a later equal value replacing an earlier one."""
+
+    def __init__(self, threads=steps.THREADS, tile_chunk=steps.TILE_CHUNK,
+                 max_chunk=steps.MAX_CHUNK, warp=32, segments=None,
+                 fold_carry=True, segment_carry=True, fold="column"):
         assert threads % warp == 0 and threads // warp <= warp
-        self.threads, self.chunk, self.warp = threads, chunk, warp
+        self.threads, self.warp = threads, warp
+        self.tile_chunk, self.max_chunk = tile_chunk, max_chunk
         self.n_warps = threads // warp
-        self.tile = threads * chunk
-        self.fold_carry = fold_carry
+        self.tile = threads * tile_chunk
+        self.segments = segments
+        self.fold_carry, self.segment_carry = fold_carry, segment_carry
+        self.fold = fold
+
+    # geometry
+
+    def geometry(self, b, gb, step):
+        """(S, seg, resident): the kernel's plan, or `segments` of them."""
+        if self.segments is None:
+            geo = steps.plan(b, gb, step)
+            return geo.segments, geo.seg, geo.resident
+        seg = -(-gb // min(self.segments, gb))
+        return -(-gb // seg), seg, step and seg <= self.threads * \
+            self.max_chunk
+
+    def _tiles(self, n, resident):
+        """(first column, width, columns a thread) of a segment's tiles."""
+        if resident:
+            return [(0, n, -(-n // self.threads) | 1)]
+        return [(c, min(self.tile, n - c), self.tile_chunk)
+                for c in range(0, n, self.tile)]
+
+    # the warp-level folds
 
     def _shfl_up_scan(self, x):
         """Inclusive max scan over the last axis (a warp's lanes) by
         __shfl_up_sync steps d = 1, 2, 4, ...: each lane reads the value
         d lanes below as it was before the step."""
         d = 1
-        while d < self.warp:
+        while d < x.shape[-1]:
             y = x.copy()
             y[..., d:] = np.maximum(x[..., d:], x[..., :-d])
             x, d = y, d * 2
         return x
 
-    def scan_tile(self, s_prev, ref, qc, j0, g_len, pen, carry):
-        """scan_tile: the tile's cummax of the key with the carry of the
-        tiles before it folded in, and the carry through the tile."""
-        match, mismatch, indel = pen
-        b, n = s_prev.shape[0], ref.shape[0]
-        j = j0 + np.arange(n)
-        sub = np.where(ref[None, :] == qc[:, None], match, mismatch)
-        diag = s_prev[:, :-1] + sub
-        up = s_prev[:, 1:] + indel
-        c = np.where(j <= g_len, np.maximum(np.maximum(diag, up), 0), 0)
-        key = np.full((b, self.tile), I32_MIN, np.int64)
-        key[:, :n] = c - indel * j
-        local = np.maximum.accumulate(
-            key.reshape(b, self.threads, self.chunk), axis=2)
-        incl = self._shfl_up_scan(
-            local[:, :, -1].reshape(b, self.n_warps, self.warp))
-        lanes = np.full((b, self.warp), I32_MIN, np.int64)
-        lanes[:, :self.n_warps] = incl[:, :, -1]
-        warp_incl = self._shfl_up_scan(lanes)[:, :self.n_warps]
+    def block_scan(self, tot):
+        """block_scan: (B, threads) chunk totals -> each thread's exclusive
+        prefix (NEG for thread 0) and the block's total."""
+        b = tot.shape[0]
+        incl = self._shfl_up_scan(tot.reshape(b, self.n_warps, self.warp))
+        w = self._shfl_up_scan(incl[:, :, -1])
         excl = np.concatenate(
-            [np.full((b, self.n_warps, 1), I32_MIN, np.int64),
+            [np.full((b, self.n_warps, 1), steps.NEG, np.int64),
              incl[:, :, :-1]], axis=2)
-        prior = np.concatenate([np.full((b, 1), I32_MIN, np.int64),
-                                warp_incl[:, :-1]], axis=1)
-        before = np.maximum(np.maximum(excl, prior[:, :, None]),
-                            carry[:, None, None])
-        if self.fold_carry:
-            local = np.maximum(local, before.reshape(b, self.threads, 1))
-        run = local.reshape(b, self.tile)[:, :n]
-        return run, np.maximum(carry, warp_incl[:, -1])
-
-    def emit_tile(self, s_prev, run, ref, qc, c0, j0, g_len, pen, cin,
-                  left_new, bval, bcol):
-        """emit_tile: the row, its codes, and each thread's first strict
-        maximum over its columns (thread k mod threads), in its order."""
-        match, mismatch, indel = pen
-        n = run.shape[1]
-        j = j0 + np.arange(n)
-        row = np.maximum(run, cin[:, None]) + indel * j
-        left = np.concatenate(
-            [left_new[:, None],
-             np.maximum(run[:, :-1], cin[:, None]) + indel * j[:-1]],
-            axis=1) + indel
-        sub = np.where(ref[None, :] == qc[:, None], match, mismatch)
-        diag = s_prev[:, :-1] + sub
-        up = s_prev[:, 1:] + indel
-        code = np.where((diag >= up) & (diag >= left) & (diag >= 0), 1,
-                        np.where((up >= left) & (up >= 0), 2,
-                                 np.where(left >= 0, 3, 0)))
-        valid = j <= g_len
-        code = np.where((row > 0) & valid, code, 0)
-        for first in range(0, n, self.threads):
-            ks = first + np.arange(self.threads)
-            ok = ks < n
-            kc = np.minimum(ks, n - 1)
-            vals = row[:, kc]
-            upd = ok & valid[kc] & (vals > bval)
-            bval = np.where(upd, vals, bval)
-            bcol = np.where(upd, c0 + kc, bcol)
-        return row, code, bval, bcol
+        prior = np.concatenate([np.full((b, 1), steps.NEG, np.int64),
+                                w[:, :-1]], axis=1)
+        return (np.maximum(excl, prior[:, :, None]).reshape(b, self.threads),
+                w[:, -1])
 
     def block_best(self, bval, bcol):
         """block_best: __shfl_down_sync folds by (value desc, column asc)
@@ -368,48 +394,110 @@ class KernelModel:
             val, col = np.where(better, ov, val), np.where(better, oc, col)
         return val, col
 
-    def _tiles(self, gb):
-        for c0 in range(0, gb, self.tile):
-            yield c0, min(self.tile, gb - c0)
+    # a tile: the chunks of the threads
 
-    def _fold_best(self, bval, bcol, i, q_len, off, best, bi, bj):
+    def _pass1(self, old, left_old, gen, qc, j, g_len, pen, cn):
+        """Pass 1: diag, up, and each chunk's running key max (B, threads,
+        cn), NEG past the tile."""
+        match, mismatch, indel = pen
+        b, n = old.shape
+        sub = np.where(gen[None, :] == qc[:, None], match, mismatch)
+        diag = np.concatenate([left_old[:, None], old[:, :-1]], axis=1) + sub
+        up = old + indel
+        c0 = np.where(j <= g_len, np.maximum(np.maximum(diag, up), 0), 0)
+        key = np.full((b, self.threads * cn), steps.NEG, np.int64)
+        key[:, :n] = c0 - indel * j
+        return diag, up, np.maximum.accumulate(
+            key.reshape(b, self.threads, cn), axis=2)
+
+    def _segment_total(self, old, halo_diag, gen, qc, j, g_len, pen,
+                       resident):
+        """The totals sweep: the segment's key total of the row."""
+        total = np.full(old.shape[0], steps.NEG, np.int64)
+        for c, n, cn in self._tiles(old.shape[1], resident):
+            left = halo_diag if c == 0 else old[:, c - 1]
+            _, _, local = self._pass1(old[:, c:c + n], left, gen[c:c + n],
+                                      qc, j[c:c + n], g_len, pen, cn)
+            total = np.maximum(total, self.block_scan(local[:, :, -1])[1])
+        return total
+
+    def _segment_row(self, old, halo_diag, halo_left, cin, gen, qc, j,
+                     g_len, pen, resident, thr, track):
+        """The row sweep: the segment's row and codes, its key total, and
+        the block's first strict maximum above `thr` where `track`, as
+        (value, column) -- (thr, INT_MAX) where there is none."""
+        indel = pen[2]
+        b, width = old.shape
+        row_out = np.empty_like(old)
+        code_out = np.empty_like(old)
+        carry = np.full(b, steps.NEG, np.int64)
+        bval = np.repeat(thr[:, None], self.threads, axis=1)
+        bcol = np.full((b, self.threads), I32_MAX, np.int64)
+        for c, n, cn in self._tiles(width, resident):
+            left_old = halo_diag if c == 0 else old[:, c - 1]
+            jt, valid = j[c:c + n], j[c:c + n] <= g_len
+            diag, up, local = self._pass1(old[:, c:c + n], left_old,
+                                          gen[c:c + n], qc, jt, g_len, pen,
+                                          cn)
+            excl, tile_total = self.block_scan(local[:, :, -1])
+            prefix = np.maximum(np.maximum(excl, carry[:, None]),
+                                cin[:, None])
+            if not self.fold_carry:
+                prefix = np.repeat(cin[:, None], self.threads, axis=1)
+            row = (np.maximum(local, prefix[:, :, None])
+                   .reshape(b, -1)[:, :n] + indel * jt)
+            firsts = np.arange(0, n, cn)
+            m_init = prefix[:, firsts // cn] + indel * (jt[firsts] - 1)
+            left = np.empty_like(row)
+            left[:, 1:] = row[:, :-1] + indel
+            left[:, firsts] = m_init + indel
+            if c == 0:
+                left[:, 0] = halo_left + indel
+            first = np.zeros(n, bool)
+            first[firsts] = True
+            code = np.where(first, _cascade(diag, up, left),
+                            np.where(diag == row, 1,
+                                     np.where(up == row, 2, 3)))
+            code_out[:, c:c + n] = np.where((row > 0) & valid, code, 0)
+            row_out[:, c:c + n] = row
+            # each thread's maximum over its chunk, searched when above
+            # its running best
+            rv = np.full((b, self.threads * cn), -1, np.int64)
+            rv[:, :n] = np.where(valid, row, -1)
+            rv = rv.reshape(b, self.threads, cn)
+            tmax, targ = rv.max(axis=2), rv.argmax(axis=2)
+            upd = track[:, None] & (tmax > bval)
+            bval = np.where(upd, tmax, bval)
+            bcol = np.where(upd, c + np.arange(self.threads) * cn + targ,
+                            bcol)
+            carry = np.maximum(carry, tile_total)
         val, col = self.block_best(bval, bcol)
-        improve = (val > best) & (i <= q_len)
-        best[:] = np.where(improve, val, best)
-        bi[:] = np.where(improve, i, bi)
-        bj[:] = np.where(improve, off + 1 + col, bj)
+        found = track & (val > thr)
+        return (row_out, code_out, carry, np.where(found, val, thr),
+                np.where(found, col, I32_MAX))
 
-    def _new_best(self, b):
-        return (np.full((b, self.threads), -1, np.int64),
-                np.full((b, self.threads), I32_MAX, np.int64))
+    def _better(self, ov, okey, v, key):
+        """The fold of the segments' candidates: (value desc, then each key
+        asc), or a later equal value replacing (`fold="arrival"`)."""
+        if self.fold == "arrival":
+            return ov >= v
+        out = ov > v
+        tie = ov == v
+        for a, b in zip(okey, key):
+            out |= tie & (a < b)
+            tie &= a == b
+        return out
 
-    def full_row(self, queries, q_len, i, genome, off, g_len, prev, codes,
-                 halo_diag, halo_left, cin, best, bi, bj, pen):
-        """full_row (the step's row): scan and emit tile by tile, the row
-        over prev in place, each code at its flat offset ((i - 1) * B +
-        b) * Gb + c of `codes` (flat); returns (last, carry)."""
-        b, gb = prev.shape
-        qc = queries[:, i - 1]
-        left_old, left_new = halo_diag.copy(), halo_left.copy()
-        carry = np.full(b, I32_MIN, np.int64)
-        bval, bcol = self._new_best(b)
-        for c0, n in self._tiles(gb):
-            j0 = off + 1 + c0
-            s_prev = np.concatenate([left_old[:, None], prev[:, c0:c0 + n]],
-                                    axis=1)
-            run, carry = self.scan_tile(s_prev, genome[c0:c0 + n], qc, j0,
-                                        g_len, pen, carry)
-            row, code, bval, bcol = self.emit_tile(
-                s_prev, run, genome[c0:c0 + n], qc, c0, j0, g_len, pen, cin,
-                left_new, bval, bcol)
-            prev[:, c0:c0 + n] = row
-            flat = (((i - 1) * b + np.arange(b))[:, None] * gb
-                    + c0 + np.arange(n)[None, :])
-            codes[flat] = code
-            left_old = s_prev[:, n]
-            left_new = np.maximum(run[:, n - 1], cin) + pen[2] * (j0 + n - 1)
-        self._fold_best(bval, bcol, i, q_len, off, best, bi, bj)
-        return left_new, carry
+    def _segments(self, gb, s_count, seg):
+        return [(s * seg, min(seg, gb - s * seg)) for s in range(s_count)]
+
+    def _carries(self, cin0, totals):
+        """The carry into each segment: cin0 and the totals to its left."""
+        out, acc = [], cin0.copy()
+        for t in totals:
+            out.append(acc.copy() if self.segment_carry else cin0.copy())
+            acc = np.maximum(acc, t)
+        return out
 
     # the three launch entries, with the plain versions' arguments
 
@@ -418,17 +506,57 @@ class KernelModel:
         t = _Numpy(queries=queries, q_len=q_len, genome=genome, prev=prev,
                    halo=halo_diag0, slab=slab, codes=codes, best=best,
                    bi=bi, bj=bj)
-        rows, b = slab.shape[1], prev.shape[0]
+        rows = slab.shape[1]
+        b, gb = t.prev.shape
+        indel = pen[2]
+        s_count, seg, resident = self.geometry(b, gb, True)
+        segs = self._segments(gb, s_count, seg)
+        j = off + 1 + np.arange(gb)
         flat = t.codes.reshape(-1)
+        # the old value left of each segment, read before any is rewritten
+        diag_halo = [t.halo.copy()] + [t.prev[:, c0 - 1].copy()
+                                       for c0, _ in segs[1:]]
+        best0 = t.best.copy()
+        cand = [(best0.copy(), np.full(b, I32_MAX, np.int64),
+                 np.full(b, I32_MAX, np.int64)) for _ in segs]
         out = np.zeros((2, rows, b), np.int64)
         for r in range(rows):
-            halo_diag = t.halo if r == 0 else t.slab[0, r - 1]
-            cin = t.slab[1, r]
-            last, carry = self.full_row(
-                t.queries, t.q_len, row0 + r + 1, t.genome, off, g_len,
-                t.prev, flat, halo_diag, t.slab[0, r], cin, t.best, t.bi,
-                t.bj, pen)
-            out[0, r], out[1, r] = last, np.maximum(cin, carry)
+            i = row0 + r + 1
+            qc = t.queries[:, i - 1]
+            track = i <= t.q_len
+            old = t.prev.copy()
+            totals = [self._segment_total(
+                old[:, c0:c0 + n], diag_halo[s], t.genome[c0:c0 + n], qc,
+                j[c0:c0 + n], g_len, pen, resident)
+                for s, (c0, n) in enumerate(segs)]
+            cins = self._carries(t.slab[1, r], totals)
+            for s, (c0, n) in enumerate(segs):
+                halo_left = (t.slab[0, r] if s == 0
+                             else cins[s] + indel * (off + c0))
+                val, srow, scol = cand[s]
+                row, code, _, v, col = self._segment_row(
+                    old[:, c0:c0 + n], diag_halo[s], halo_left, cins[s],
+                    t.genome[c0:c0 + n], qc, j[c0:c0 + n], g_len, pen,
+                    resident, val, track)
+                t.prev[:, c0:c0 + n] = row
+                flat[(((i - 1) * b + np.arange(b))[:, None] * gb
+                      + c0 + np.arange(n)[None, :])] = code
+                upd = v > val
+                cand[s] = (np.where(upd, v, val), np.where(upd, i, srow),
+                           np.where(upd, c0 + col, scol))
+                diag_halo[s] = halo_left
+            carry = np.maximum(cins[-1], totals[-1])
+            out[0, r], out[1, r] = carry + indel * (off + gb), carry
+        v, row, col = best0.copy(), np.full(b, I32_MAX), np.full(b, I32_MAX)
+        for ov, orow, ocol in cand:
+            take = (ov > best0) & self._better(ov, (orow, ocol), v,
+                                               (row, col))
+            v, row, col = (np.where(take, ov, v), np.where(take, orow, row),
+                           np.where(take, ocol, col))
+        hit = v > best0
+        t.best[:] = np.where(hit, v, best0)
+        t.bi[:] = np.where(hit, row, t.bi)
+        t.bj[:] = np.where(hit, off + 1 + col, t.bj)
         t.write_back(codes=flat.reshape(codes.shape))
         return torch.from_numpy(out.astype(np.int32))
 
@@ -436,18 +564,19 @@ class KernelModel:
                        halo_diag, run, *pen):
         t = _Numpy(queries=queries, genome=genome, prev=prev,
                    halo=halo_diag, run=run)
-        b = t.prev.shape[0]
-        left_old = t.halo.copy()
-        carry = np.full(b, I32_MIN, np.int64)
-        for c0, n in self._tiles(t.prev.shape[1]):
-            s_prev = np.concatenate([left_old[:, None],
-                                     t.prev[:, c0:c0 + n]], axis=1)
-            t.run[:, c0:c0 + n], carry = self.scan_tile(
-                s_prev, t.genome[c0:c0 + n], t.queries[:, i - 1],
-                off + 1 + c0, g_len, pen, carry)
-            left_old = s_prev[:, n]
+        b, gb = t.prev.shape
+        s_count, seg, _ = self.geometry(b, gb, False)
+        j = off + 1 + np.arange(gb)
+        total = np.full(b, steps.NEG, np.int64)
+        for c0, n in self._segments(gb, s_count, seg):
+            halo = t.halo if c0 == 0 else t.prev[:, c0 - 1]
+            seg_total = self._segment_total(
+                t.prev[:, c0:c0 + n], halo, t.genome[c0:c0 + n],
+                t.queries[:, i - 1], j[c0:c0 + n], g_len, pen, False)
+            t.run[:, c0 + n - 1] = seg_total     # the only words written
+            total = np.maximum(total, seg_total)
         t.write_back()
-        return torch.from_numpy(carry.astype(np.int32))
+        return torch.from_numpy(total.astype(np.int32))
 
     def seqpar_row_post(self, queries, q_len, i, genome, off, g_len, index,
                         prev, halo_diag, run, totals, codes_row, best, bi,
@@ -456,32 +585,41 @@ class KernelModel:
                    halo=halo_diag, run=run, totals=totals, codes=codes_row,
                    best=best, bi=bi, bj=bj)
         b, gb = t.prev.shape
-        cin = np.full(b, steps.NEG, np.int64)
+        indel = pen[2]
+        s_count, seg, _ = self.geometry(b, gb, False)
+        segs = self._segments(gb, s_count, seg)
+        j = off + 1 + np.arange(gb)
+        cin_rank = np.full(b, steps.NEG, np.int64)
         for d in range(index):
-            cin = np.maximum(cin, t.totals[d])
-        left_new = (np.zeros(b, np.int64) if index == 0
-                    else cin + pen[2] * off)
-        left_old = t.halo.copy()
-        qc = t.queries[:, i - 1]
-        bval, bcol = self._new_best(b)
-        flat = t.codes.reshape(-1)
-        for c0, n in self._tiles(gb):
-            j0 = off + 1 + c0
-            s_prev = np.concatenate([left_old[:, None],
-                                     t.prev[:, c0:c0 + n]], axis=1)
-            run_t = t.run[:, c0:c0 + n]
-            row, code, bval, bcol = self.emit_tile(
-                s_prev, run_t, t.genome[c0:c0 + n], qc, c0, j0, g_len, pen,
-                cin, left_new, bval, bcol)
+            cin_rank = np.maximum(cin_rank, t.totals[d])
+        cins = self._carries(cin_rank, [t.run[:, c0 + n - 1]
+                                        for c0, n in segs])
+        old = t.prev.copy()
+        track = i <= t.q_len
+        best0 = t.best.copy()
+        v, col = best0.copy(), np.full(b, I32_MAX, np.int64)
+        for s, (c0, n) in enumerate(segs):
+            if s:
+                halo_left = cins[s] + indel * (off + c0)
+            else:
+                halo_left = (np.zeros(b, np.int64) if index == 0
+                             else cin_rank + indel * off)
+            halo = t.halo if s == 0 else old[:, c0 - 1]
+            row, code, carry, sv, scol = self._segment_row(
+                old[:, c0:c0 + n], halo, halo_left, cins[s],
+                t.genome[c0:c0 + n], t.queries[:, i - 1], j[c0:c0 + n],
+                g_len, pen, False, best0, track)
             t.prev[:, c0:c0 + n] = row
-            flat[(np.arange(b)[:, None] * gb + c0
-                  + np.arange(n)[None, :])] = code
-            left_old = s_prev[:, n]
-            left_new = np.maximum(run_t[:, n - 1], cin) + pen[2] * (j0 + n
-                                                                   - 1)
-        self._fold_best(bval, bcol, i, t.q_len, off, t.best, t.bi, t.bj)
-        t.write_back(codes=flat.reshape(codes_row.shape))
-        return torch.from_numpy(left_new.astype(np.int32))
+            t.codes[:, c0:c0 + n] = code
+            take = (sv > best0) & self._better(sv, (c0 + scol,), v, (col,))
+            v, col = np.where(take, sv, v), np.where(take, c0 + scol, col)
+        last = np.maximum(cins[-1], carry) + indel * (off + gb)
+        hit = v > best0
+        t.best[:] = np.where(hit, v, best0)
+        t.bi[:] = np.where(hit, i, t.bi)
+        t.bj[:] = np.where(hit, off + 1 + col, t.bj)
+        t.write_back()
+        return torch.from_numpy(last.astype(np.int32))
 
 
 class _Numpy:
@@ -615,77 +753,230 @@ def test_wrappers_take_the_plain_versions_on_the_cpu_and_refuse_nothing():
 # the kernel's model against the plain steps
 # ---------------------------------------------------------------------------
 
-SMALL = {"threads": 8, "chunk": 3, "warp": 4}     # tiles of 24 columns
+# two small geometries: three segments resident in shared memory, chunks
+# of up to 5 columns a thread; two segments walking tiles of 4 columns
+GEOMETRIES = {
+    "resident S=3": {"threads": 4, "warp": 2, "tile_chunk": 3,
+                     "max_chunk": 5, "segments": 3},
+    "tiled S=2": {"threads": 4, "warp": 2, "tile_chunk": 1, "max_chunk": 1,
+                  "segments": 2},
+}
 DEVICES = {"ties": 4, "pad inside": 3, "past g_len": 4}
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("indel", [1, -1, -3])
 @pytest.mark.parametrize("rows", [1, 3, 8])
 @pytest.mark.parametrize("case", sorted(MODEL_CASES))
-def test_kernel_model_step_equals_plain_step(case, rows, indel):
+def test_kernel_model_step_equals_plain_step(case, rows, indel, geometry):
     """At every active step of every rank of a simulated world, the
     model's step writes what the plain step writes; the variant equals the
     JAX package's per-row answer on the query rows."""
     n_dev = DEVICES[case]
     pen = (10, -1, indel)
-    pair = Paired(PLAIN, KernelModel(**SMALL))
+    pair = Paired(PLAIN, KernelModel(**GEOMETRIES[geometry]))
     got = run_pipelined(pair.step, n_dev, MODEL_CASES[case], rows, pen)
     assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
     _assert_equal(got, jax_seqpar(PER_ROW, case, indel=indel),
                   f"{case}, R = {rows}", rows=MODEL_CASES[case][0].shape[1])
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("indel", [1, -1, -3])
 @pytest.mark.parametrize("case", sorted(MODEL_CASES))
-def test_kernel_model_row_equals_plain_row(case, indel):
+def test_kernel_model_row_equals_plain_row(case, indel, geometry):
     """The model's pre and post write what the plain ones write, on every
-    row of every rank; the variant equals the JAX package's."""
+    row of every rank, its post reading the `run` its pre left; the
+    variant equals the JAX package's."""
     pen = (10, -1, indel)
-    pair = Paired(PLAIN, KernelModel(**SMALL))
+    pair = Paired(PLAIN, KernelModel(**GEOMETRIES[geometry]))
     got = run_per_row(pair.pre, pair.post, DEVICES[case], MODEL_CASES[case],
                       pen)
     assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
     _assert_equal(got, jax_seqpar(PER_ROW, case, indel=indel), case)
 
 
+def _run_variant(variant, step_fns, n_dev, inputs, pen, rows=8):
+    if variant == "per-row":
+        return run_per_row(step_fns.pre, step_fns.post, n_dev, inputs, pen)
+    return run_pipelined(step_fns.step, n_dev, inputs, rows, pen)
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+def test_post_takes_the_plain_versions_run_too(variant):
+    """The model's post on the copy of the plain pre's `run` (the whole
+    local cummax) writes what it writes on its own pre's (the segment
+    totals at the segments' last columns)."""
+    pair = Paired(PLAIN, KernelModel(**GEOMETRIES["resident S=3"]),
+                  own_scratch=False)
+    _run_variant(variant, pair, 2, _ties(), (10, -1, -1))
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+
+
 def _two_tiles():
-    """Two ranks of 5,000 columns: the kernel's own geometry (tiles of
-    4,608) crosses a tile inside each block."""
+    """Two ranks of 4,995 columns: the kernel's own geometry takes four
+    segments of 1,249 columns a rank."""
     return _setup(777, n_q=4, g_len=9_990, q_max=24, pad_to=2)
 
 
 @pytest.mark.parametrize("variant", ["per-row", "pipelined"])
 def test_kernel_model_at_the_kernels_geometry(variant):
     inputs = _two_tiles()
-    pen = (10, -1, -1)
+    assert steps.plan(4, 4_995, variant == "pipelined")[:3] == (
+        4, 1_249, variant == "pipelined")
     pair = Paired(PLAIN, KernelModel())
-    if variant == "per-row":
-        run_per_row(pair.pre, pair.post, 2, inputs, pen)
-    else:
-        run_pipelined(pair.step, 2, inputs, 8, pen)
+    _run_variant(variant, pair, 2, inputs, (10, -1, -1))
     assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+
+
+# phase 8f's widths: the 50 kb genome on one rank, and a rank's block of it
+# at meshes 4 and 8, each with 64 items
+WIDTHS_8F = {50_000: 6, 12_500: 6, 6_250: 6}
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+@pytest.mark.parametrize("width", sorted(WIDTHS_8F))
+def test_kernel_model_at_the_kernels_own_s_at_the_8f_widths(width, variant):
+    """64 items against one rank of each 8f width: the kernel's own plan
+    (S = 6 segments, resident steps, tiles of 3,840 columns per-row),
+    short queries (a few rows)."""
+    geo = steps.plan(64, width, variant == "pipelined")
+    assert geo.segments == WIDTHS_8F[width]
+    assert geo.resident == (variant == "pipelined")
+    inputs = _setup(8_000 + width, n_q=64, g_len=width, q_max=6, pad_to=1)
+    pair = Paired(PLAIN, KernelModel())
+    _run_variant(variant, pair, 1, inputs, (10, -1, -1))
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+
+
+SEGMENT_CASE = {"threads": 4, "warp": 2, "tile_chunk": 3, "max_chunk": 7}
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+@pytest.mark.parametrize("segments", [1, 5])
+def test_kernel_model_segments_that_do_not_divide_the_block(segments,
+                                                           variant):
+    """One rank of 96 columns in 5 segments (four of 20 and one of 16),
+    and in one (a step's segment of 96 walks tiles, past 4 x 7 columns)."""
+    pair = Paired(PLAIN, KernelModel(**SEGMENT_CASE, segments=segments))
+    got = _run_variant(variant, pair, 1, _ties(), (10, -1, -1), rows=3)
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    _assert_equal(got, jax_seqpar(PER_ROW, "ties"), "ties, mesh 1",
+                  rows=_ties()[0].shape[1])
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+def test_kernel_model_segment_wholly_past_g_len(variant):
+    """One rank of 80 columns, g_len 50, in 4 segments: the last lies
+    wholly past g_len, the one before partly."""
+    pair = Paired(PLAIN, KernelModel(**SEGMENT_CASE, segments=4))
+    got = _run_variant(variant, pair, 1, _past_g_len(), (10, -1, -1))
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    _assert_equal(got, jax_seqpar(PER_ROW, "past g_len"), "past g_len",
+                  rows=_past_g_len()[0].shape[1])
+
+
+def _tie_rows(inputs, segments):
+    """(item, row) pairs where the plain row scan's maximum over a rank of
+    the whole block lies in more than one of `segments` segments."""
+    q, ql, g_pad, g_len = inputs
+    b, n_pad = q.shape
+    prev = torch.zeros((b, len(g_pad)), dtype=torch.int32)
+    seg = -(-len(g_pad) // segments)
+    found = []
+    for i in range(1, n_pad + 1):
+        run = torch.empty_like(prev)
+        total = steps.seqpar_row_pre_plain(
+            torch.as_tensor(q), i, torch.as_tensor(g_pad), 0, g_len, prev,
+            torch.zeros(b, dtype=torch.int32), run)
+        steps.seqpar_row_post_plain(
+            torch.as_tensor(q), torch.as_tensor(ql), i,
+            torch.as_tensor(g_pad), 0, g_len, 0, prev,
+            torch.zeros(b, dtype=torch.int32), run, total[None],
+            torch.empty((b, len(g_pad)), dtype=torch.uint8),
+            *(torch.zeros(b, dtype=torch.int32) for _ in range(3)))
+        row = prev[:, :g_len].numpy()
+        for item in range(b):
+            cols = np.flatnonzero(row[item] == row[item].max())
+            if row[item].max() > 0 and len(set(cols // seg)) > 1:
+                found.append((item, i))
+    return found
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+def test_kernel_model_tie_across_segments_takes_the_smaller_column(variant):
+    """The ties case on one rank in 4 segments of 24 columns: a row's best
+    score ties across segment boundaries, and the fold by value, then row,
+    then column equals the plain steps; folding by arrival differs."""
+    assert _tie_rows(_ties(), 4)
+    pair = Paired(PLAIN, KernelModel(**SEGMENT_CASE, segments=4))
+    got = _run_variant(variant, pair, 1, _ties(), (10, -1, -1))
+    assert pair.steps > 0 and pair.diffs == 0, (pair.diffs, pair.steps)
+    _assert_equal(got, jax_seqpar(PER_ROW, "ties"), "ties, 4 segments",
+                  rows=_ties()[0].shape[1])
+    arrival = Paired(PLAIN, KernelModel(**SEGMENT_CASE, segments=4,
+                                        fold="arrival"))
+    _run_variant(variant, arrival, 1, _ties(), (10, -1, -1))
+    assert arrival.diffs > 0
 
 
 @pytest.mark.parametrize("variant", ["per-row", "pipelined"])
 def test_model_without_the_carry_fold_differs(variant):
     """Negative control: without folding the threads and tiles before a
     chunk into it, the model's steps differ from the plain ones."""
-    pen = (10, -1, -1)
-    pair = Paired(PLAIN, KernelModel(**SMALL, fold_carry=False))
-    if variant == "per-row":
-        run_per_row(pair.pre, pair.post, 2, A, pen)
-    else:
-        run_pipelined(pair.step, 2, A, 8, pen)
+    pair = Paired(PLAIN, KernelModel(**GEOMETRIES["resident S=3"],
+                                     fold_carry=False))
+    _run_variant(variant, pair, 2, A, (10, -1, -1))
+    assert pair.diffs > 0
+
+
+@pytest.mark.parametrize("variant", ["per-row", "pipelined"])
+def test_model_without_the_segment_carry_differs(variant):
+    """Negative control: a segment that ignores the totals of the segments
+    to its left (the carry across segment boundaries) differs."""
+    pair = Paired(PLAIN, KernelModel(**GEOMETRIES["resident S=3"],
+                                     segment_carry=False))
+    _run_variant(variant, pair, 2, A, (10, -1, -1))
     assert pair.diffs > 0
 
 
 def test_model_block_best_breaks_ties_by_column_not_thread():
     """A tie held by a later thread at a smaller column wins."""
-    m = KernelModel(**SMALL)
+    m = KernelModel(threads=8, warp=4)
     val = np.array([[5, 7, 7, 2, 7, 1, 0, 7]], np.int64)
     col = np.array([[0, 40, 17, 3, 9, 5, 6, 30]], np.int64)
     v, c = m.block_best(val, col)
     assert (int(v[0]), int(c[0])) == (7, 9)
+
+
+@pytest.mark.parametrize("step", [True, False])
+def test_plan_fills_the_card_and_leaves_no_segment_empty(step):
+    """The launch geometry: S = 6 for 64 items at every 8f width (384
+    blocks, three an SM); 8 segments for one item; 2 for 150 items, unless
+    a step's segment would not fit in shared memory; one past 396 items; a
+    step's segment resident up to MAX_RESIDENT columns and tiled past it;
+    every segment non-empty, S <= 8, B * S within BLOCKS_AN_SM blocks an SM
+    where S > 1 (one wave), the block's shared memory within 227 KB."""
+    for width in WIDTHS_8F:
+        assert steps.plan(64, width, step).segments == 6
+    assert steps.plan(1, 50_000, step).segments == 8
+    assert steps.plan(150, 12_500, step).segments == 2
+    assert steps.plan(150, 50_000, step).segments == (4 if step else 2)
+    assert steps.plan(400, 12_500, step).segments == 1
+    wide = steps.plan(2, 140_000, step)
+    assert (wide.segments, wide.resident) == (8, False)
+    for b in (1, 2, 7, 33, 64, 131, 132, 133, 200, 264, 265, 1000):
+        for gb in (1, 2, 5, 24, 1_023, 1_024, 2_049, 4_995, 6_250, 12_500,
+                   16_128, 16_129, 50_000, 129_024, 129_025, 140_000):
+            geo = steps.plan(b, gb, step)
+            assert 1 <= geo.segments <= steps.MAX_CLUSTER
+            assert (geo.segments - 1) * geo.seg < gb <= geo.segments * geo.seg
+            assert geo.resident == (step and geo.seg <= steps.MAX_RESIDENT)
+            assert geo.blocks == b * geo.segments
+            assert geo.smem <= 227 * 1024
+            fit = min(steps.MAX_CLUSTER, -(-gb // steps.MAX_RESIDENT))
+            if geo.segments > 1 and not (step and geo.segments == fit):
+                assert geo.blocks <= steps.BLOCKS_AN_SM * steps.SMS
 
 
 # ---------------------------------------------------------------------------
