@@ -126,7 +126,17 @@ Phases, each printed with the elapsed seconds as it ends:
    and the full-width SW kernel on the same items, and splits one more
    call's host time between the wrappers, the exchanges and the rest.
    Each step prints its wall, each rank's peak device memory, the kernels'
-   launches and the collectives.
+   launches and the collectives;
+9. the port's drivers, on the card: 9a ``bench_torch.run`` at its full
+   size (PhiX, N=1000, l=100, 20 copies, 50 rounds), its JSON line printed,
+   the kernel held to the plain version on copy 0 and launched once a
+   sweep; 9b one ``ops.overlap_scores`` call (16,384 sampled pairs of
+   those reads, ragged, with N) held to its plain version on the CPU; 9c
+   ``scripts/dense_demo_torch.py``'s rows at C = 10 and 30, equal to the
+   JAX package's (its EXPECTED); 9d ``scripts/long_genome_demo_torch.py``'s
+   "fast, k=5" row (banded metrics, the 256-contig banded check all
+   identical) equal to the JAX package's. Each path's launches are counted
+   from 0 and must be non-zero.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
@@ -176,10 +186,6 @@ EXPECTED = {
 # Published peaks of one H100 SXM (dense): int8 tensor-core rate and HBM3.
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-# A base comparison is exact integer matching on int8 codes: as the JAX
-# kernel's 3-channel +-1 product (exact in int8, int32 accumulation) it is
-# a multiply-add per channel, 6 ops, priced at the card's int8 peak.
-OPS_PER_COMPARISON = 6
 
 # The long-genome path: scripts/long_genome_demo.py's "exact, k=15" row at
 # its default size (a 50,000 bp genome from random.Random(0), N=15000,
@@ -398,27 +404,11 @@ class CallRecorder:
 
 
 def contig_summary(contigs: list[str]) -> dict:
-    from genome_assembly_tpu_torch.metrics.measures import calculate_n50
+    from genome_assembly_tpu_torch.metrics.measures import (
+        contig_summary as summary,
+    )
 
-    return {
-        "contigs": len(contigs),
-        "n50": calculate_n50(contigs),
-        "total_length": sum(len(c) for c in contigs),
-        "sha256": hashlib.sha256("\n".join(contigs).encode()).hexdigest(),
-    }
-
-
-def comparisons(a_len, b_len, L: int) -> int:
-    """sum over pairs of sum_{j=1}^{len_b} min(len_a, j): the base
-    comparisons the function needs for these lengths."""
-    import numpy as np
-
-    n = np.arange(L + 1, dtype=np.int64)[:, None]
-    m = np.arange(L + 1, dtype=np.int64)[None, :]
-    f = np.where(m <= n, m * (m + 1) // 2, n * (n + 1) // 2 + n * (m - n))
-    ca = np.bincount(np.asarray(a_len), minlength=L + 1).astype(np.int64)
-    cb = np.bincount(np.asarray(b_len), minlength=L + 1).astype(np.int64)
-    return int(ca @ f @ cb)
+    return summary(contigs)
 
 
 def pair_comparisons(a_len, b_len, L: int) -> int:
@@ -460,17 +450,6 @@ def at_odd_address(codes, dev):
     view = flat[1:].view(codes.shape)
     view.copy_(torch.from_numpy(codes))
     return view
-
-
-def tensor_core_ops(a_len, b_len) -> int:
-    """int8 ops the kernel performs on the tensor cores: per pair, j runs
-    ceil(j/8) k-steps of 8 positions x 4 channels, a multiply-add each."""
-    import numpy as np
-
-    n = np.asarray(b_len, np.int64)
-    k = (n + 7) // 8                       # sum_{j<=n} 8 ceil(j/8)
-    per_b = 8 * (8 * (k - 1) * k // 2 + k * (n - 8 * (k - 1)))
-    return 2 * 4 * len(a_len) * int(per_b.sum())
 
 
 def cut_queries(rs, genome_codes, lengths, subst: float = 0.02):
@@ -637,6 +616,9 @@ def time_pairs(calls, reps: int) -> dict:
 
     from genome_assembly_tpu_torch.native import graphcore
     from genome_assembly_tpu_torch.ops import overlap as op
+    from genome_assembly_tpu_torch.ops.overlap_allpairs import (
+        OPS_PER_COMPARISON,
+    )
 
     outs = [op.overlap_scores_pairs(*a, **k) for a, k in calls]   # warm-up
 
@@ -2615,6 +2597,133 @@ def parallel_path(log, genome: str, reads4: list[str], contigs4_summary,
     return errs, seqpar_kernels
 
 
+# Phase 9: the port's drivers of the path (bench_torch.py and the two
+# scripts/*_torch.py demos; bench_scaling_torch.py and the demos' other
+# rows are run on their own).
+DRIVER_PAIRS = 16_384           # pairs of the one ops.overlap_scores call
+DENSE_COVERAGES = (10.0, 30.0)
+LONG_DRIVER_ROW = ("fast", 5)
+
+
+def load_driver(rel: str):
+    """A driver of the repo by its path (the scripts/ ones have no
+    package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drivers(log, genome: str, card_line: str, device="cuda"):
+    """Phase 9: ``bench_torch.run`` at its full size (its JSON line, the
+    kernel held to the plain version on copy 0), one ``ops.overlap_scores``
+    call held to its plain version, the dense demo at C = 10 and 30 and
+    the long demo's "fast, k=5" row with its banded check, each against
+    the JAX package's constants, each path's launches counted from 0.
+    Returns the max abs err of the kernel checks by kernel name, or None
+    at the first failure (logged)."""
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.ops import overlap as op
+    from genome_assembly_tpu_torch.ops import overlap_allpairs as oa
+    from genome_assembly_tpu_torch.ops import smith_waterman as sw
+
+    dev = torch.device(device)
+    t9 = time.perf_counter()
+    bench = load_driver("bench_torch.py")
+    t = time.perf_counter()
+    oa.launches = 0
+    res = bench.run(device=device, **bench.config_from_env({}))
+    launches = oa.launches
+    if not res["equal"]:
+        log("phase 9a FAILED: bench_torch's kernel outputs differ from the "
+            "plain version's on copy 0")
+        return None
+    line = {k: res[k] for k in (*bench.BENCH_KEYS, "kernel_alone_us",
+                                "bound_us", "bound_by",
+                                "baseline_pairs_per_sec")}
+    log(f"phase 9a bench_torch.run: {time.perf_counter() - t:.1f}s, "
+        f"all-pairs launches {launches}, kernel == plain on copy 0; card "
+        f"{card_line}")
+    log(f"phase 9a {json.dumps(line)}")
+    if launches < res["sweeps_per_fetch"]:
+        log("phase 9a FAILED: the bench did not launch the all-pairs kernel "
+            "once a sweep")
+        return None
+
+    # one ops.overlap_scores call at the bench's reads: sampled pairs, a
+    # right-aligned, every fourth read with an N, held to the plain version
+    codes, lengths = bench.bench_reads(1000, 100)
+    rs = np.random.RandomState(9)
+    lengths = rs.randint(0, 101, size=len(lengths)).astype(np.int32)
+    codes[np.arange(100)[None, :] >= lengths[:, None]] = 4
+    for r in range(0, len(codes), 4):
+        if lengths[r]:
+            codes[r, rs.randint(0, lengths[r])] = 4
+    ia = rs.randint(0, len(codes), DRIVER_PAIRS)
+    ib = rs.randint(0, len(codes), DRIVER_PAIRS)
+    args = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (codes[ia], lengths[ia], codes[ib], lengths[ib])]
+    args[0] = op.right_align(args[0], args[1])
+    op.launches = 0
+    s_k, e_k = op.overlap_scores(*(x.to(dev) for x in args))
+    pair_launches = op.launches
+    s_p, e_p = op.overlap_scores(*args)
+    pair_err = max(int((s_k.cpu() - s_p).abs().max()),
+                   int((e_k.cpu() - e_p).abs().max()))
+    log(f"phase 9b ops.overlap_scores on {DRIVER_PAIRS} pairs (L=100, "
+        f"ragged, N inside every fourth read): pair-list launches "
+        f"{pair_launches}, kernel {'==' if pair_err == 0 else '!='} plain "
+        f"(max abs err {pair_err})")
+    if pair_err or pair_launches != 1:
+        log("phase 9b FAILED: ops.overlap_scores")
+        return None
+
+    dense = load_driver(os.path.join("scripts", "dense_demo_torch.py"))
+    for coverage in DENSE_COVERAGES:
+        row = dense.run_row(genome, coverage, device=device)
+        log(f"phase 9c dense demo C={coverage:g}: {json.dumps(row)}; card "
+            f"{card_line}")
+        if (row["launches"]["overlap_allpairs"] < 1
+                or row["launches"]["sw_full_width"] < 1):
+            log("phase 9c FAILED: the dense demo did not launch the "
+                "all-pairs and the full-width SW kernel")
+            return None
+        if not row["equal"]:
+            log(f"phase 9c FAILED: C={coverage:g} differs from the JAX "
+                f"package's: {json.dumps(dense.EXPECTED[coverage])}")
+            return None
+    long_demo = load_driver(os.path.join("scripts",
+                                         "long_genome_demo_torch.py"))
+    lg, reads = long_demo.long_inputs()
+    mode, k = LONG_DRIVER_ROW
+    row = long_demo.run_row(lg, reads, k, mode, device=device,
+                            full_delta=False,
+                            expected=long_demo.EXPECTED[mode, k])
+    log(f"phase 9d long demo \"{mode}, k={k}\" (banded metrics and the "
+        f"256-contig banded check; its full-width pass runs with the "
+        f"script): {json.dumps(row)}; card {card_line}")
+    ran = row["launches"]
+    if (ran["overlap_allpairs"] + ran["overlap_pairs"] < 1
+            or ran["sw_banded"] < 1 or sw.full_width_launches < 1):
+        log("phase 9d FAILED: the row did not launch an overlap kernel and "
+            "both SW kernels")
+        return None
+    if not row["equal"]:
+        log(f"phase 9d FAILED: the row differs from the JAX package's or "
+            f"its banded check found a difference: "
+            f"{json.dumps(long_demo.EXPECTED[mode, k])}")
+        return None
+    log(f"phase 9 drivers passed: {time.perf_counter() - t9:.1f}s; card "
+        f"{card_line}")
+    return {"overlap_allpairs": 0, "overlap_pairs": pair_err}
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -3008,13 +3117,14 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
 
-    n_cmp = comparisons(main_lens, main_lens, L)
+    OPS_PER_COMPARISON = oa.OPS_PER_COMPARISON
+    n_cmp = oa.comparisons(main_lens, main_lens, L)
     ops_ms = OPS_PER_COMPARISON * n_cmp / PEAK_INT8_OPS * 1e3
     n_bytes = 2 * na * L + 2 * 4 * na + 2 * 4 * na * na
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    tc_ops = tensor_core_ops(main_lens, main_lens)
+    tc_ops = oa.tensor_core_ops(main_lens, main_lens)
     log(f"phase 5 kernel time at {na}x{na}, L={L}: {kernel_ms:.3f} ms "
         f"(mean of {reps}); plain version {plain_ms:.1f} ms; bound "
         f"{bound_ms:.3f} ms by {bound_by} ({n_cmp} comparisons = "
@@ -3211,8 +3321,11 @@ def main() -> int:
         return 1
     par_errs, seqpar_kernels = par
     kernels += seqpar_kernels
+    driver_errs = drivers(log, genome, card_line)
+    if driver_errs is None:
+        return 1
     for entry in kernels:
-        for found in (errs, par_errs):
+        for found in (errs, par_errs, driver_errs):
             if entry["name"] in found:
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            found[entry["name"]])

@@ -22,7 +22,12 @@ for a launch, so those thresholds do not carry over:
 
 The k-mer join needs no rule: it is one set of torch ops
 (``graph/candidates.py``) that runs on whichever device the caller
-passes.
+passes, so the JAX package's ``use_device_join`` has no counterpart here.
+``min_device_pairs``, ``min_device_join``, ``min_device_cells`` and
+``accelerator_attached`` keep the JAX names: the first returns the
+constant that ``use_host_pair_scoring`` applies, the next two the JAX
+package's defaults, which no route here reads. None of them reads the
+JAX package's ``GA_TPU_MIN_DEVICE_*`` variables.
 
 Entry points take ``device="cuda"`` by default. ``resolve_device`` raises
 when the caller asks for a card and none is present: a run never moves to
@@ -39,6 +44,27 @@ EXECUTORS = ("auto", "native", "xla")
 # genome_assembly_tpu/core/dispatch.py:42-43): below it, its score_pairs
 # answers with the C++ scorer on any backend.
 MIN_DEVICE_PAIRS = 200_000
+# The JAX package's other two thresholds (its defaults), read by no route
+# of the port.
+MIN_DEVICE_JOIN = 50_000
+MIN_DEVICE_CELLS = 2_000_000_000
+
+
+def min_device_pairs() -> int:
+    return MIN_DEVICE_PAIRS
+
+
+def min_device_join() -> int:
+    return MIN_DEVICE_JOIN
+
+
+def min_device_cells() -> int:
+    return MIN_DEVICE_CELLS
+
+
+def accelerator_attached() -> bool:
+    """True when a CUDA card is available to this process."""
+    return torch.cuda.is_available()
 
 
 def resolve_device(device) -> torch.device:

@@ -24,6 +24,7 @@ route), or, for fewer than 200,000 pairs of reads with an N, the C++ scorer
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -33,9 +34,15 @@ from ..core import dispatch
 from ..core.encoding import PAD, encode_batch
 from ..utils.tracing import stage
 
-# The JAX package's dense all-pairs limit (GA_TPU_DENSE_MAX_U default): up
-# to this many unique reads a CUDA device scores all U^2 pairs and gathers.
+# The JAX package's dense all-pairs limit: up to this many unique reads a
+# CUDA device scores all U^2 pairs and gathers. GA_TPU_DENSE_MAX_U
+# overrides it, as in the JAX package (dense_max_u).
 DENSE_MAX_U = 16384
+
+
+def dense_max_u() -> int:
+    """GA_TPU_DENSE_MAX_U, or DENSE_MAX_U when it is unset."""
+    return int(os.environ.get("GA_TPU_DENSE_MAX_U", DENSE_MAX_U))
 
 
 @dataclass
@@ -164,8 +171,8 @@ def score_pairs(unique_reads: list[str], pairs, chunk: int = 16384,
     `pairs` is a list of (ua, ub) tuples or an (ia, ib) index-array tuple.
     Returns (scores, end_positions) int32 numpy arrays aligned with `pairs`.
 
-    On a CUDA device, up to DENSE_MAX_U unique reads or at any U when the
-    candidates are dense (>= 5% of U^2), the all-pairs kernel
+    On a CUDA device, up to `dense_max_u()` unique reads or at any U when
+    the candidates are dense (>= 5% of U^2), the all-pairs kernel
     (ops/overlap_allpairs.py) scores every ordered pair of unique reads, at
     U x U exactly, and the requested entries are gathered on the device;
     otherwise (the sparse route) the pair-list kernel (ops/overlap.py)
@@ -203,7 +210,7 @@ def _score_pairs_impl(unique_reads: list[str], ia, ib, dev: torch.device):
             return graphcore.overlap_nogap_pairs(left, lens, ia, ib)
     codes = torch.from_numpy(left).to(dev)
     lengths = torch.from_numpy(lens).to(dev)
-    if u_count > DENSE_MAX_U and n_pairs * 20 < u_count * u_count:
+    if u_count > dense_max_u() and n_pairs * 20 < u_count * u_count:
         from ..ops.overlap import overlap_scores_pairs
 
         with stage("score.pairs.pairlist", items=n_pairs):

@@ -4,7 +4,8 @@ caller's device, and the dense enumeration for k = 0.
 The JAX package has two joins, an XLA program for k <= 15
 (``candidate_pairs_device``) and a numpy copy for k <= 31
 (``candidate_pairs_numpy``); both compute the same pairs. Here one join,
-``candidate_pairs_device``, runs as torch ops on a card or on the host,
+``candidate_pairs_device``, runs as torch ops on a card or on the host;
+``candidate_pairs_numpy`` is that join on the host under the JAX name,
 and ``candidate_pairs_dense`` is a copy. Both give the reference dict
 probe's pair order bit for bit (``overlapGraphs.py:30-49``):
 
@@ -32,6 +33,11 @@ import torch
 from ..core.encoding import encode_batch
 
 MAX_JOIN_K = 31  # int64 keys: 31-mer + terminator = 63 bits
+# The JAX package's caps on its two joins. Its device join packs keys into
+# int32 lanes (JAX runs without x64), hence its MAX_DEVICE_K of 15; the
+# torch join keeps int64 keys on every device, so both caps are MAX_JOIN_K.
+MAX_DEVICE_K = MAX_JOIN_K
+MAX_HOST_K = MAX_JOIN_K
 
 
 def kmer_join_keys(left: torch.Tensor, lens: torch.Tensor, k: int):
@@ -115,6 +121,13 @@ def candidate_pairs_device(unique_reads: list[str], k: int, device="cuda"):
     keep = ua != ub  # reference skips identical reads (overlapGraphs.py:52)
     pairs = torch.stack([ua[keep], ub[keep]]).to(torch.int32).cpu().numpy()
     return pairs[0], pairs[1]
+
+
+def candidate_pairs_numpy(unique_reads: list[str], k: int):
+    """The join on the host: `candidate_pairs_device` on the CPU, the
+    JAX package's ``candidate_pairs_numpy`` (int32 numpy (ia, ib) in the
+    reference's pair order). Requires 0 < k <= MAX_HOST_K."""
+    return candidate_pairs_device(unique_reads, k, device="cpu")
 
 
 def candidate_pairs_dense(u_count: int):

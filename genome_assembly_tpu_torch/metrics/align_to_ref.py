@@ -20,9 +20,10 @@ other and to the JAX package's:
   items;
 - the C++ engine (``native/graphcore.cpp``), the default on a CPU device.
 
-Banded option (banded=True, or banded="auto" on genomes of BANDED_AUTO_MIN
-bp or more): seeded full-genome contigs go through the diagonal-banded
-alignment with a per-contig band sized from the batched k-mer seed: the
+Banded option (banded=True, or banded="auto" on genomes of
+``banded_auto_min()`` bp or more: GA_TPU_BANDED_AUTO_MIN, default 16,384):
+seeded full-genome contigs go through the diagonal-banded alignment with
+a per-contig band sized from the batched k-mer seed: the
 band covers [d_lo, d_hi], the diagonal range of the contig's exact k-mer
 hits, plus a slack of `band`. Every banded result is then band-stability
 verified: the alignment is recomputed at twice the band and accepted only
@@ -33,6 +34,8 @@ full-width pass. banded=False forces full width everywhere.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -45,6 +48,16 @@ from ..ops.smith_waterman import replay_ops_host
 # package's GA_TPU_BANDED_AUTO_MIN default; every reference experiment runs
 # on the 5386 bp PhiX and stays below it, i.e. exact full width)
 BANDED_AUTO_MIN = 16384
+
+
+def banded_auto_min() -> int:
+    """GA_TPU_BANDED_AUTO_MIN, or BANDED_AUTO_MIN when it is unset or not
+    an integer (the JAX package's rule)."""
+    try:
+        return int(os.environ.get("GA_TPU_BANDED_AUTO_MIN", BANDED_AUTO_MIN))
+    except ValueError:
+        return BANDED_AUTO_MIN
+
 
 # On a card, one call's op streams (B x stride uint8) are cut at this many
 # bytes, so that peak device memory and the copy to the host stay bounded
@@ -316,7 +329,7 @@ def align_contigs_to_reference(contigs: list[str], reference_genome: str,
     performanceMeasures.py:219-230).
 
     banded:
-      "auto" (default) — full width below BANDED_AUTO_MIN bp, verified
+      "auto" (default) — full width below banded_auto_min() bp, verified
         banding from it on (the long-genome regime);
       False — full width for everything (exact);
       True — banded alignment for seeded full-genome contigs, every result
@@ -340,7 +353,7 @@ def align_contigs_to_reference(contigs: list[str], reference_genome: str,
                                                   read_length)
 
     use_banded = banded is True or (banded == "auto"
-                                    and genome_len >= BANDED_AUTO_MIN)
+                                    and genome_len >= banded_auto_min())
     banded_items: list[tuple[str, int, int, int]] = []
     if use_banded and full_window:
         banded_items = _banded_plan(full_window, reference_genome, band,

@@ -24,6 +24,8 @@ its two dead-code metric variants are host copies of the JAX package's.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -104,6 +106,18 @@ def calculate_n50(contigs: list[str]) -> int:
         if cum >= total / 2:
             return length
     return 0
+
+
+def contig_summary(contigs: list[str]) -> dict:
+    """Count, N50, total length and the sha256 of the newline-joined
+    contigs: what the port's drivers hold against the JAX package's
+    recorded runs."""
+    return {
+        "contigs": len(contigs),
+        "n50": calculate_n50(contigs),
+        "total_length": sum(len(c) for c in contigs),
+        "sha256": hashlib.sha256("\n".join(contigs).encode()).hexdigest(),
+    }
 
 
 def calculate_genome_coverage_and_mismatch_rate(
@@ -187,9 +201,9 @@ def calculate_measures(contigs: list[str], reads: list[str], num_reads: int,
 
     `banded` and `band` choose the alignment route of the contigs
     (``align_contigs_to_reference``): "auto" bands genomes of
-    BANDED_AUTO_MIN bp or more with seeded, stability-verified bands; True
-    forces banding; False forces full width. The alignment feeds the
-    tracer's "metrics.align" stage."""
+    ``banded_auto_min()`` bp or more with seeded, stability-verified
+    bands; True forces banding; False forces full width. The alignment
+    feeds the tracer's "metrics.align" stage."""
     if verbose:
         print(f"Calculating performance measures for {experiment_name} "
               f"(Iteration {num_iteration})")

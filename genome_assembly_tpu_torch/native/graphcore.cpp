@@ -8,8 +8,10 @@
 // reference's documented 48-hour scaling wall (report p.4 footnote ii) —
 // the C++ engine is typically 100-1000x the Python/NetworkX loop.
 //
-// Exposed via a C ABI for ctypes (see graphcore.py). Five entry points,
-// the ones this package calls: gc_remove_cycles_v2 (cycle removal),
+// Exposed via a C ABI for ctypes (see graphcore.py). Six entry points,
+// the ones this package calls: gc_remove_cycles_v2 (cycle removal) and
+// gc_remove_cycles (the same removals by the full-restart loop, selected
+// by remove_cycles(legacy=True) or GA_TPU_CYCLES_LEGACY=1),
 // gc_overlap_nogap_pairs (host pair scoring on a CPU device),
 // gc_local_align_batch and gc_local_align_banded_batch (the metrics pass's
 // full-width and banded Smith-Waterman on a CPU device) and gc_greedy_chain
@@ -70,13 +72,113 @@ struct Graph {
   }
 };
 
+// Scratch for repeated cycle searches; epoch-stamped to avoid O(V) clears.
+struct Scratch {
+  std::vector<int64_t> iter_pos;       // per-node adjacency cursor
+  std::vector<uint32_t> visited_mark;  // edge-DFS visited stamp
+  std::vector<uint32_t> active_mark;   // active-path stamp
+  std::vector<uint32_t> explored_mark; // fully-explored stamp (per search)
+  std::vector<int32_t> stack;
+  std::vector<int64_t> path;           // active path edge indices
+  uint32_t epoch = 0;
+
+  void init(int64_t n) {
+    iter_pos.assign(n, 0);
+    visited_mark.assign(n, 0);
+    active_mark.assign(n, 0);
+    explored_mark.assign(n, 0);
+  }
+};
+
+// Find the first cycle under NetworkX find_cycle('original') semantics.
+// Returns true and fills `cycle` (edge indices, trimmed) if found.
+bool find_first_cycle(const Graph& g, Scratch& s, std::vector<int64_t>& cycle) {
+  const uint32_t explored_epoch = ++s.epoch;  // persists across start nodes
+  for (int64_t start = 0; start < g.num_nodes; ++start) {
+    if (s.explored_mark[start] == explored_epoch) continue;
+    const uint32_t ep = ++s.epoch;  // per-start-node stamps
+    s.stack.clear();
+    s.path.clear();
+    s.stack.push_back((int32_t)start);
+    s.active_mark[start] = ep;
+    int32_t prev_head = -1;
+    int64_t final_node = -1;
+
+    // `seen` = nodes with active_mark/visited... track separately: the
+    // reference adds every non-explored head plus the start to `seen` and
+    // promotes them to explored if no cycle is found. We stamp them with ep
+    // in visited_mark when pushed, and promote below.
+    std::vector<int32_t> seen;
+    seen.push_back((int32_t)start);
+
+    while (!s.stack.empty()) {
+      int32_t node = s.stack.back();
+      if (s.visited_mark[node] != ep) {
+        s.visited_mark[node] = ep;
+        s.iter_pos[node] = g.adj_start[node];
+      }
+      int64_t pos = s.iter_pos[node];
+      int64_t eidx = -1;
+      const int64_t end = g.adj_start[node + 1];
+      while (pos < end) {
+        int64_t e = g.adj_edges[pos];
+        ++pos;
+        if (g.alive[e]) { eidx = e; break; }
+      }
+      s.iter_pos[node] = pos;
+      if (eidx < 0) { s.stack.pop_back(); continue; }
+      const int32_t tail = g.src[eidx];
+      const int32_t head = g.dst[eidx];
+      s.stack.push_back(head);
+      if (s.explored_mark[head] == explored_epoch) continue;
+      if (prev_head != -1 && tail != prev_head) {
+        // backtracked: pop path until its last head == tail
+        while (true) {
+          if (s.path.empty()) {
+            // active set becomes exactly {tail}: every path-edge head was
+            // already unmarked on pop, so the only possible survivor is the
+            // start node — clear it before marking tail.
+            s.active_mark[start] = 0;
+            s.active_mark[tail] = ep;
+            break;
+          }
+          int64_t popped = s.path.back();
+          s.path.pop_back();
+          s.active_mark[g.dst[popped]] = 0;
+          if (!s.path.empty() && g.dst[s.path.back()] == tail) break;
+        }
+      }
+      s.path.push_back(eidx);
+      if (s.active_mark[head] == ep) {
+        final_node = head;
+        break;
+      }
+      seen.push_back(head);
+      s.active_mark[head] = ep;
+      prev_head = head;
+    }
+
+    if (final_node >= 0) {
+      // trim leading edges before the cycle entry
+      size_t i = 0;
+      for (; i < s.path.size(); ++i)
+        if (g.src[s.path[i]] == final_node) break;
+      if (i == s.path.size()) i = 0;  // defensive; mirrors nx fallthrough
+      cycle.assign(s.path.begin() + i, s.path.end());
+      return true;
+    }
+    for (int32_t v : seen) s.explored_mark[v] = explored_epoch;
+  }
+  return false;
+}
+
 // ---------------------------------------------------------------------------
 // Incremental cycle removal (round 3).
 //
-// The plain loop restarts the whole NetworkX-order edge-DFS after every
-// deletion: O(cycles x E) — 50 s at k=0/C=10 and ~80 min at C=30.
-// Key exactness argument for doing better: a full search returns at the
-// FIRST cycle, so every earlier start-node search that completed cycle-free
+// The legacy loop (gc_remove_cycles) restarts the whole NetworkX-order
+// edge-DFS after every deletion: O(cycles x E) — 50 s at k=0/C=10 and ~80
+// min at C=30. Key exactness argument for doing better: `find_first_cycle`
+// returns at the FIRST cycle, so every earlier start-node search that completed cycle-free
 // could not reach any cycle — in particular it never scanned any edge of the
 // cycle eventually found (had a cycle been reachable, that search would have
 // ended the call). Deleting the found cycle's weakest edge therefore leaves
@@ -305,6 +407,33 @@ int64_t gc_remove_cycles_v2(int64_t num_nodes, int64_t num_edges,
   g.build_adjacency();
   IncrementalRemover r(g);
   return r.remove_all(alive);
+}
+
+// Removes cycles by deleting the first-minimum-weight edge of each found
+// cycle until acyclic. Mutates `alive`. Returns the number of edges removed.
+int64_t gc_remove_cycles(int64_t num_nodes, int64_t num_edges,
+                         const int32_t* src, const int32_t* dst,
+                         const int32_t* weight, uint8_t* alive) {
+  Graph g{num_nodes, num_edges, src, dst, weight, alive};
+  g.build_adjacency();
+  Scratch s;
+  s.init(num_nodes);
+  std::vector<int64_t> cycle;
+  int64_t removed = 0;
+  while (find_first_cycle(g, s, cycle)) {
+    int64_t weakest = cycle[0];
+    int32_t wmin = weight[weakest];
+    for (size_t i = 1; i < cycle.size(); ++i) {
+      if (weight[cycle[i]] < wmin) {
+        wmin = weight[cycle[i]];
+        weakest = cycle[i];
+      }
+    }
+    alive[weakest] = 0;
+    ++removed;
+    cycle.clear();
+  }
+  return removed;
 }
 
 // Reference-faithful overlap-alignment DP (reference aligners.py:6-82),

@@ -31,12 +31,14 @@ def _declare(lib) -> None:
     u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     ll = ctypes.c_longlong
-    lib.gc_remove_cycles_v2.restype = ll
-    lib.gc_remove_cycles_v2.argtypes = [
-        ll, ll,                 # num_nodes, num_edges
-        i32, i32, i32,          # src, dst, weight
-        u8,                     # alive (in/out)
-    ]
+    for name in ("gc_remove_cycles_v2", "gc_remove_cycles"):
+        fn = getattr(lib, name)
+        fn.restype = ll
+        fn.argtypes = [
+            ll, ll,             # num_nodes, num_edges
+            i32, i32, i32,      # src, dst, weight
+            u8,                 # alive (in/out)
+        ]
     lib.gc_overlap_nogap_pairs.restype = ll
     lib.gc_overlap_nogap_pairs.argtypes = [
         ll, ll,                 # n_pairs, stride (width)
@@ -107,30 +109,48 @@ def load():
     return _LIB
 
 
-def _n_threads() -> int:
-    return min(os.cpu_count() or 1, 8)
+def available() -> bool:
+    """Whether the engine builds and loads here. A failure is not hidden:
+    `load` raises it again at the next use."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
-def remove_cycles(g) -> int:
-    """C++ weakest-edge cycle removal; mutates g.alive. Returns #removed."""
+def _n_threads(n_threads: int | None = None) -> int:
+    return min(os.cpu_count() or 1, 8) if n_threads is None else n_threads
+
+
+def remove_cycles(g, legacy: bool | None = None) -> int:
+    """C++ weakest-edge cycle removal; mutates g.alive. Returns #removed.
+
+    Uses the incremental-resume engine (gc_remove_cycles_v2: the same
+    removals in the same order, one DFS prefix instead of one per cycle)
+    unless `legacy=True`, or `legacy=None` with GA_TPU_CYCLES_LEGACY=1,
+    selects the full-restart loop (gc_remove_cycles)."""
     lib = load()
+    if legacy is None:
+        legacy = os.environ.get("GA_TPU_CYCLES_LEGACY") == "1"
     alive = np.ascontiguousarray(g.alive, dtype=np.uint8)
     src = np.ascontiguousarray(g.src, dtype=np.int32)
     dst = np.ascontiguousarray(g.dst, dtype=np.int32)
     weight = np.ascontiguousarray(g.weight, dtype=np.int32)
-    removed = lib.gc_remove_cycles_v2(g.num_nodes, len(src), src, dst,
-                                      weight, alive)
+    fn = lib.gc_remove_cycles if legacy else lib.gc_remove_cycles_v2
+    removed = fn(g.num_nodes, len(src), src, dst, weight, alive)
     g.alive[:] = alive.astype(bool)
     return int(removed)
 
 
 def overlap_nogap_pairs(reads_mat, lens, ia, ib, match_score: int = 10,
-                        mismatch: int = -1):
+                        mismatch: int = -1, n_threads: int | None = None):
     """C++ no-gap overlap scoring over candidate index pairs.
 
     reads_mat: (U, W) int8 LEFT-aligned unique-read codes; lens: (U,)
     int32; ia/ib: (P,) int32 pair indices. Returns (score, end) int32 (P,)
-    arrays — the same function as the all-pairs kernel, per pair."""
+    arrays — the same function as the all-pairs kernel, per pair.
+    `n_threads` defaults to min(os.cpu_count(), 8)."""
     lib = load()
     reads_mat = np.ascontiguousarray(reads_mat, dtype=np.int8)
     lens = np.ascontiguousarray(lens, dtype=np.int32)
@@ -142,7 +162,7 @@ def overlap_nogap_pairs(reads_mat, lens, ia, ib, match_score: int = 10,
     if n_pairs:
         lib.gc_overlap_nogap_pairs(n_pairs, reads_mat.shape[1], reads_mat,
                                    lens, ia, ib, match_score, mismatch,
-                                   score, end, _n_threads())
+                                   score, end, _n_threads(n_threads))
     return score, end
 
 
@@ -167,7 +187,8 @@ def greedy_chain(n_nodes: int, src, dst, order):
 
 def local_align_batch_suffix_windows(queries: list[str], genome_codes,
                                      w_len, match_score: int = 10,
-                                     mismatch: int = -1, indel: int = -1):
+                                     mismatch: int = -1, indel: int = -1,
+                                     n_threads: int | None = None):
     """Batched C++ Smith-Waterman of queries against per-item SUFFIX
     windows of one genome (the two window shapes of the metrics pass:
     full genome, or the tail window genome[-n:]).
@@ -195,13 +216,15 @@ def local_align_batch_suffix_windows(queries: list[str], genome_codes,
     if B:
         lib.gc_local_align_batch(B, q_stride, q_mat, q_len, m, genome, wl,
                                  match_score, mismatch, indel, ops.shape[1],
-                                 score, bi, bj, steps, ops, _n_threads())
+                                 score, bi, bj, steps, ops,
+                                 _n_threads(n_threads))
     return score, bi, bj, steps, ops
 
 
 def local_align_banded_batch(queries: list[str], genome_codes, d0,
                              band: int, match_score: int = 10,
-                             mismatch: int = -1, indel: int = -1):
+                             mismatch: int = -1, indel: int = -1,
+                             n_threads: int | None = None):
     """Batched C++ diagonal-banded SW against one shared genome
     (ops/smith_waterman.py local_align_batch_banded semantics).
 
@@ -230,7 +253,7 @@ def local_align_banded_batch(queries: list[str], genome_codes, d0,
                                         genome, d0, band, match_score,
                                         mismatch, indel, ops.shape[1],
                                         score, bi, bj, steps, ops,
-                                        _n_threads())
+                                        _n_threads(n_threads))
     return score, bi, bj, steps, ops
 
 

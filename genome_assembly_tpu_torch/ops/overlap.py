@@ -18,6 +18,8 @@ every read into bit planes in a scratch tensor that the wrapper allocates
 (``scratch_words``), the other scores the pairs, a warp walking
 ``PAIRS_A_WARP`` consecutive pairs and keeping the source read's planes
 while ``ia`` repeats. ``launches`` counts one a call, for both.
+``overlap_scores`` takes the JAX function's operands (a right-aligned and
+b, one pair a row) and scores them through ``overlap_scores_pairs``.
 
 ``overlap_align_full`` is the gapped overlap DP for arbitrary penalties
 (the JAX package's XLA program of that name, on no assembly path), as
@@ -69,6 +71,18 @@ def right_align(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.where(src >= 0, gathered,
                        torch.tensor(int(PAD), dtype=reads.dtype,
                                     device=reads.device))
+
+
+def left_align(right: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Inverse of `right_align`: (N, L) int8 reads right-aligned in their
+    slots -> left-aligned, PAD on the right."""
+    l = right.shape[1]
+    src = (torch.arange(l, device=right.device)[None, :]
+           + (l - lengths.to(torch.int64))[:, None])
+    gathered = torch.gather(right, 1, src.clamp(0, max(l - 1, 0)))
+    return torch.where(src < l, gathered,
+                       torch.tensor(int(PAD), dtype=right.dtype,
+                                    device=right.device))
 
 
 def plane_stride(w: int) -> int:
@@ -172,6 +186,43 @@ def overlap_scores_pairs(codes: torch.Tensor, lengths: torch.Tensor,
     if ia.numel():
         launches += 1
     return out
+
+
+def overlap_scores(a_right: torch.Tensor, a_len: torch.Tensor,
+                   b: torch.Tensor, b_len: torch.Tensor,
+                   match_score: int = 10, mismatch: int = -1):
+    """Score a batch of read pairs, one pair a row: the JAX package's
+    ``ops/overlap.py::overlap_scores``, with its operands and contract.
+
+    Args:
+        a_right: (B, L) int8 source reads, RIGHT-aligned (PAD on the left).
+        a_len:   (B,) int32 true lengths of a.
+        b:       (B, L) int8 target reads, LEFT-aligned.
+        b_len:   (B,) int32 true lengths of b.
+
+    Returns:
+        (score, end_pos): (B,) int32 tensors on the inputs' device, the
+        first strict maximum over j = 0 .. len(b) and its j; a PAD (or N)
+        cell scores 0.
+
+    Row p of a is left-aligned and stacked over b, and pair p is scored as
+    rows (p, B + p) of that (2B, L) matrix by `overlap_scores_pairs`: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor. Refuses the
+    penalties and widths that the JAX function asserts against.
+    """
+    n, l = a_right.shape
+    if max(abs(match_score - mismatch),
+           abs(match_score + 3 * mismatch)) > 256:
+        raise ValueError("channel weights must be bf16-exact integers "
+                         "(|match - mismatch|, |match + 3 mismatch| <= 256)")
+    if 4 * max(abs(match_score), abs(mismatch)) * l >= 2**24:
+        raise ValueError("4*score exceeds the f32 exact-integer range; "
+                         "chunk reads")
+    codes = torch.cat([left_align(a_right, a_len), b])
+    lengths = torch.cat([a_len, b_len])
+    ia = torch.arange(n, dtype=torch.int32, device=a_right.device)
+    return overlap_scores_pairs(codes, lengths, ia, ia + n, match_score,
+                                mismatch)
 
 
 def launch(codes, lengths, ia, ib, match_score=10, mismatch=-1):

@@ -16,7 +16,8 @@ Returns (score, end) (Na, Nb) int32 matrices.
 ``jc``, ``interpret``, ``shift``): on a CUDA tensor it launches
 ``csrc/overlap_allpairs.cu`` (built with ``nvcc`` at first use), on a CPU
 tensor it runs ``overlap_scores_block_plain``, the counterpart of
-``overlap_scores_block_xla``. There is no fallback between the two.
+``overlap_scores_block_xla`` (which is its other name here). There is no
+fallback between the two.
 ``overlap_scores_all_pairs_xla`` (the plain version) and
 ``overlap_scores_all_pairs_auto`` (the route on a device it resolves, the
 card by default) carry the JAX package's entry-point names, and
@@ -51,6 +52,12 @@ MAX_L = 1023          # the JAX kernel's packed end-position field
 # for long reads) lie on grid.x, whose 2**31 - 1 blocks outlast any output
 # that fits in device memory.
 MAX_ROWS = 2**31 - 1
+
+# A base comparison is exact integer matching on int8 codes: as the JAX
+# kernel's 3-channel +-1 product (exact in int8, int32 accumulation) it is
+# a multiply-add per channel, 6 ops (the useful work of a sweep, priced at
+# the card's int8 peak).
+OPS_PER_COMPARISON = 6
 
 # Kernel launches since the last reset; set to 0 to start counting.
 launches = 0
@@ -221,6 +228,28 @@ def overlap_scores_all_pairs_host(codes: np.ndarray, lengths: np.ndarray,
     return s.reshape(n, n), e.reshape(n, n)
 
 
+def comparisons(a_len, b_len, L: int) -> int:
+    """sum over pairs of sum_{j=1}^{len_b} min(len_a, j): the base
+    comparisons the function needs for these lengths (the useful work of
+    `overlap_scores_block`, OPS_PER_COMPARISON int8 ops each)."""
+    n = np.arange(L + 1, dtype=np.int64)[:, None]
+    m = np.arange(L + 1, dtype=np.int64)[None, :]
+    f = np.where(m <= n, m * (m + 1) // 2, n * (n + 1) // 2 + n * (m - n))
+    ca = np.bincount(np.asarray(a_len), minlength=L + 1).astype(np.int64)
+    cb = np.bincount(np.asarray(b_len), minlength=L + 1).astype(np.int64)
+    return int(ca @ f @ cb)
+
+
+def tensor_core_ops(a_len, b_len) -> int:
+    """int8 ops the kernel performs on the tensor cores: per pair, j runs
+    ceil(j/8) k-steps of 8 positions x 4 channels, a multiply-add each
+    (the executed work of a launch)."""
+    n = np.asarray(b_len, np.int64)
+    k = (n + 7) // 8                       # sum_{j<=n} 8 ceil(j/8)
+    per_b = 8 * (8 * (k - 1) * k // 2 + k * (n - 8 * (k - 1)))
+    return 2 * 4 * len(a_len) * int(per_b.sum())
+
+
 def _one_hot4(codes: torch.Tensor) -> torch.Tensor:
     """(..., L) int8 -> (..., L, 4) float32 one-hot; PAD (4) -> zeros."""
     return (codes[..., None].to(torch.int64)
@@ -261,3 +290,7 @@ def overlap_scores_block_plain(a_codes: torch.Tensor, a_len: torch.Tensor,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     return best, end
+
+
+# The JAX package's name for the plain one-hot contraction.
+overlap_scores_block_xla = overlap_scores_block_plain

@@ -50,6 +50,10 @@ from ..ops import seqpar as steps
 from . import _comm
 from .mesh import Mesh
 
+# the identity of the carry's max in the per-row variant (the JAX
+# package's NEG; the steps' own, ops/seqpar.py)
+NEG = steps.NEG
+
 
 class _Block:
     """One rank's block of the genome axis, its inputs on the rank's device

@@ -32,8 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.encoding import PAD, encode_batch
-from ..ops.overlap import overlap_scores_pairs
+from ..core.encoding import encode_batch
+from ..ops.overlap import overlap_scores, overlap_scores_pairs
 from ..ops.overlap_allpairs import overlap_scores_block
 from ..simulate.errors import inject_errors_device
 from ..simulate.reads import reads_at_starts
@@ -65,18 +65,6 @@ def _mask_diagonal(scores: torch.Tensor) -> torch.Tensor:
     return scores.fill_diagonal_(DIAGONAL_SCORE)
 
 
-def _left_align(right: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``ops/overlap.py::right_align``: (N, L) int8 reads
-    right-aligned in their slots -> left-aligned, PAD on the right."""
-    l = right.shape[1]
-    src = (torch.arange(l, device=right.device)[None, :]
-           + (l - lengths.to(torch.int64))[:, None])
-    gathered = torch.gather(right, 1, src.clamp(0, max(l - 1, 0)))
-    return torch.where(src < l, gathered,
-                       torch.tensor(int(PAD), dtype=right.dtype,
-                                    device=right.device))
-
-
 def sharded_overlap_scores(mesh: Mesh, a_right, a_len, b, b_len,
                            axis: str = "data"):
     """Shard a flat pair batch over the mesh; each rank scores its slice.
@@ -87,9 +75,8 @@ def sharded_overlap_scores(mesh: Mesh, a_right, a_len, b, b_len,
     be divisible by the mesh size (pad upstream).
 
     Returns (scores, ends): (P,) int32 on the mesh device; None outside
-    the mesh. The pair-list scorer takes one read matrix, so a rank
-    left-aligns its a rows and scores pair p as rows (p, P' + p) of the
-    stacked (2P', L) matrix of its P' pairs.
+    the mesh. Each rank scores its block with ``ops/overlap.py``'s
+    ``overlap_scores``.
     """
     n_dev = mesh.shape[axis]
     _check_divides(
@@ -99,13 +86,10 @@ def sharded_overlap_scores(mesh: Mesh, a_right, a_len, b, b_len,
     if not mesh.member:
         return None
     blk = _block(mesh, axis, a_right.shape[0])
-    ar = _on(mesh, a_right[blk], torch.int8)
-    al = _on(mesh, a_len[blk], torch.int32)
-    codes = torch.cat([_left_align(ar, al), _on(mesh, b[blk], torch.int8)])
-    lens = torch.cat([al, _on(mesh, b_len[blk], torch.int32)])
-    p = ar.shape[0]
-    ia = torch.arange(p, dtype=torch.int32, device=mesh.device)
-    s, e = overlap_scores_pairs(codes, lens, ia, ia + p)
+    s, e = overlap_scores(_on(mesh, a_right[blk], torch.int8),
+                          _on(mesh, a_len[blk], torch.int32),
+                          _on(mesh, b[blk], torch.int8),
+                          _on(mesh, b_len[blk], torch.int32))
     line = mesh.axis_line(axis)
     return _comm.all_gather(s, line), _comm.all_gather(e, line)
 

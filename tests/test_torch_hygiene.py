@@ -10,9 +10,14 @@
   back;
 - the parallel layer: the spawned ranks' test entry module imports no JAX,
   a mesh on the card raises without one, NCCL for ranks that share a card
-  raises rather than switching to gloo, and a failed or hung world raises.
+  raises rather than switching to gloo, and a failed or hung world raises;
+- the drivers (``bench_torch.py``, ``bench_scaling_torch.py`` and the two
+  ``scripts/*_torch.py`` demos) import no JAX, exit non-zero without a card
+  and write no tracked file, and a failed kernel build raises in each.
 """
 
+import hashlib
+import importlib.util
 import os
 import pkgutil
 import random
@@ -36,6 +41,10 @@ from genome_assembly_tpu_torch.ops import overlap, overlap_allpairs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(genome_assembly_tpu_torch.__file__))
+DRIVERS = ("bench_torch.py", "bench_scaling_torch.py",
+           os.path.join("scripts", "dense_demo_torch.py"),
+           os.path.join("scripts", "long_genome_demo_torch.py"))
+SCRIPTS = ("chip_smoke.py", *DRIVERS)
 
 
 def _port_modules():
@@ -49,6 +58,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for rel in DRIVERS:
+        yield os.path.join(ROOT, rel)
 
 
 def test_imports_with_jax_blocked():
@@ -58,9 +69,9 @@ def test_imports_with_jax_blocked():
         "sys.modules['genome_assembly_tpu'] = None\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
-        f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for path in {[os.path.join(ROOT, p) for p in SCRIPTS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('m', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', "
         "'genome_assembly_tpu.')) for m, v in sys.modules.items() "
         "if v is not None)\n"
@@ -250,3 +261,66 @@ def test_a_failed_or_hung_world_raises(tmp_path):
         spawn(workers.sleep, 2, args=(600,), device="cpu", timeout_s=10,
               workdir=str(tmp_path))
     assert time.monotonic() - t0 < 60
+
+
+def _tracked_outputs():
+    """The JAX package's recorded runs, which the drivers must not touch."""
+    names = sorted(f for f in os.listdir(ROOT)
+                   if f.endswith(".json") and f.startswith(
+                       ("BENCH", "DENSE_DEMO", "LONG_GENOME", "SCALING")))
+    assert len(names) >= 8
+    out = {}
+    for name in names:
+        with open(os.path.join(ROOT, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_drivers_fail_without_a_card_and_write_no_tracked_file(driver):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    before = _tracked_outputs()
+    outs = [os.path.join(ROOT, "results", name) for name in (
+        "dense_demo_torch.json", "long_genome_torch.json",
+        "scaling_torch.json")]
+    stamps = {p: os.path.getmtime(p) for p in outs if os.path.exists(p)}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DENSE_", "LONG_GENOME_", "SCALE_"))}
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, driver)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert proc.stdout == ""
+    assert _tracked_outputs() == before
+    assert {p: os.path.getmtime(p) for p in outs
+            if os.path.exists(p)} == stamps
+
+
+def _driver(rel):
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(rel))[0], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_a_failed_kernel_build_raises_in_each_driver(driver, tmp_path,
+                                                     monkeypatch):
+    """With a card reported and nvcc missing, each driver raises the
+    build's error before it puts anything on the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(overlap_allpairs, "_LIB", None)
+    monkeypatch.setattr(overlap_allpairs, "_nvcc",
+                        lambda: str(tmp_path / "no-such-nvcc"))
+    mod = _driver(driver)
+    start = {
+        "bench_torch.py": lambda: mod.run(n=8, l=8, rep=1, rounds=1),
+        "bench_scaling_torch.py": lambda: mod.run(mod.config_from_env({}),
+                                                  world_size=2),
+    }.get(driver, lambda: mod.build("cuda"))
+    with pytest.raises(RuntimeError, match="overlap_allpairs.*failed"):
+        start()

@@ -118,13 +118,14 @@ def test_smoke_fails_without_a_card():
 
 
 def test_smoke_bound_counts_comparisons():
-    smoke = _load_smoke()
+    from genome_assembly_tpu_torch.ops.overlap_allpairs import comparisons
+
     rs = np.random.RandomState(0)
     a_len = rs.randint(0, 13, size=9)
     b_len = rs.randint(0, 13, size=7)
     brute = sum(min(n, j) for n in a_len for m in b_len
                 for j in range(1, m + 1))
-    assert smoke.comparisons(a_len, b_len, 12) == brute
+    assert comparisons(a_len, b_len, 12) == brute
 
 
 def test_smoke_bound_counts_pair_list_comparisons():
